@@ -1,0 +1,19 @@
+"""h2o-danube-3-4b [dense]: llama+mistral mix with sliding-window attention
+[arXiv:2401.16818; unverified]."""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="h2o-danube-3-4b",
+    family="dense",
+    num_layers=24,
+    d_model=3840,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=10240,
+    vocab_size=32000,
+    head_dim=120,
+    attn="swa",
+    window=4096,
+    mlp="swiglu",
+    citation="arXiv:2401.16818",
+))

@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels of the port, one package per kernel, each with
+``kernel.py`` (the wrapper and its ``launches`` count), ``ref.py`` (the plain
+PyTorch version) and ``ops.py`` (dispatch by device).
+
+``SOURCES`` names every CUDA source, so that a caller can build them all at
+once (``_build.build(SOURCES)``).
+"""
+from .flash_attention import kernel as _flash_kernel
+
+SOURCES = {"flash_attention": _flash_kernel.SOURCE}

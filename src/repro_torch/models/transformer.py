@@ -1,0 +1,181 @@
+"""LM assembly for the port: builds the ``dense`` block kind from an
+ArchConfig, in the JAX package's parameter layout.
+
+A model is a sequence of blocks; each block stacks ``n`` layers of one kind
+along a leading layer axis (``params["blocks"][i]``), as in
+``repro.models.transformer``. This slice ports the ``dense`` kind (pre-norm
+GQA attention + pre-norm MLP, full or windowed attention); the other kinds
+and frontends raise ``NotImplementedError`` naming their ROADMAP item.
+
+API:
+  init_params(cfg, seed, dtype, device)          -> params
+  forward(cfg, params, batch)                    -> (logits, aux)
+  init_cache(cfg, batch, max_len, dtype, device) -> cache
+  decode_step(cfg, params, cache, batch, pos)    -> (logits, cache)  [cache updated in place]
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from .._device import resolve_device
+from ..configs.base import ArchConfig
+from . import attention as attn
+from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
+
+_PORTED_KINDS = ("dense",)
+_ROADMAP_ITEM = {
+    "moe": "ROADMAP queue 1 item 8 (models/moe.py)",
+    "mamba": "ROADMAP queue 1 item 9 (models/ssm.py and the hybrid stack)",
+    "shared_attn": "ROADMAP queue 1 item 9 (models/ssm.py and the hybrid stack)",
+    "rwkv": "ROADMAP queue 1 item 7 (models/rwkv.py)",
+}
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    kind: str  # dense | moe | mamba | rwkv | shared_attn
+    n: int  # stacked layers in this block (1 for shared_attn)
+    local: bool = False  # windowed attention
+    shared_idx: int = -1  # which shared param set (zamba2 alternates 2)
+
+
+def layer_plan(cfg: ArchConfig) -> list[BlockSpec]:
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        plan: list[BlockSpec] = []
+        done = 0
+        grp = 0
+        while done < L:
+            n = min(cfg.attn_every, L - done)
+            plan.append(BlockSpec("mamba", n))
+            done += n
+            if done < L or n == cfg.attn_every:
+                plan.append(BlockSpec("shared_attn", 1, shared_idx=grp % cfg.n_shared_attn))
+                grp += 1
+        return plan
+    if cfg.family == "ssm":
+        return [BlockSpec("rwkv", L)]
+    kind = "moe" if cfg.family == "moe" else "dense"
+    if cfg.attn == "local_global":
+        plan = []
+        done = 0
+        while done < L:
+            n_local = min(cfg.global_every - 1, L - done)
+            if n_local:
+                plan.append(BlockSpec(kind, n_local, local=True))
+                done += n_local
+            if done < L:
+                plan.append(BlockSpec(kind, 1, local=False))
+                done += 1
+        return plan
+    return [BlockSpec(kind, L, local=(cfg.attn == "swa"))]
+
+
+def _check_ported(cfg: ArchConfig) -> list[BlockSpec]:
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: frontend {cfg.frontend!r} is ROADMAP queue 1 item 10 (frontends)")
+    plan = layer_plan(cfg)
+    for blk in plan:
+        if blk.kind not in _PORTED_KINDS:
+            raise NotImplementedError(f"{cfg.name}: block kind {blk.kind!r} is "
+                                      f"{_ROADMAP_ITEM[blk.kind]}")
+    return plan
+
+
+# ------------------------------------------------------------------- init --
+def _init_dense_stack(gen: torch.Generator, cfg: ArchConfig, n: int, dtype, device) -> dict:
+    d = cfg.d_model
+    return {
+        "norm1": torch.zeros((n, d), dtype=dtype, device=device),
+        "attn": attn.init_attn(gen, (n,), cfg, dtype, device),
+        "norm2": torch.zeros((n, d), dtype=dtype, device=device),
+        "mlp": init_mlp(gen, (n,), d, cfg.d_ff, cfg.mlp, dtype, device),
+    }
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, device=None) -> dict:
+    """Random params from ``seed`` with the JAX package's shapes (not its
+    values: torch cannot replay ``jax.random``; ``bridge`` copies those)."""
+    plan = _check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: dict[str, Any] = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "blocks": [],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
+                                   dtype, dev)
+    for blk in plan:
+        params["blocks"].append(_init_dense_stack(gen, cfg, blk.n, dtype, dev))
+    return params
+
+
+def _layer(stack: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked param tree (views, no copies)."""
+    if isinstance(stack, dict):
+        return {k: _layer(v, i) for k, v in stack.items()}
+    return stack[i]
+
+
+# ---------------------------------------------------------------- forward --
+def _layer_forward(cfg: ArchConfig, local: bool, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attn.full_attention(p["attn"], cfg, h, local=local)
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp(p["mlp"], h, cfg.mlp, cfg.act)
+
+
+def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return unembed(head, x, tied=cfg.tie_embeddings)
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict):
+    """Full-sequence forward (prefill). batch: {"tokens": (b, s)}.
+
+    Returns (logits, aux); aux carries the MoE loss, 0 for dense stacks."""
+    plan = _check_ported(cfg)
+    x = embed(params["embed"], batch["tokens"])
+    for blk, bparams in zip(plan, params["blocks"]):
+        for i in range(blk.n):
+            x = _layer_forward(cfg, blk.local, _layer(bparams, i), x)
+    logits = _unembed(cfg, params, x)
+    return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+
+# ------------------------------------------------------------------ cache --
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> list:
+    """Per-block decode caches. Windowed attention blocks get ring buffers
+    of ``window`` slots; full attention gets ``max_len``."""
+    dev = resolve_device(device)
+    caches = []
+    for blk in _check_ported(cfg):
+        length = min(cfg.window, max_len) if blk.local else max_len
+        caches.append(attn.init_kv_cache(cfg, blk.n, batch, length, dtype, dev))
+    return caches
+
+
+def decode_step(cfg: ArchConfig, params: dict, caches: list, batch: dict, pos: int):
+    """One-token decode. batch: {"tokens": (b, 1)}; ``pos`` is the current
+    sequence position. The k/v of this token are written into ``caches`` in
+    place (every lane of the batch at one slot); the same list is returned."""
+    plan = _check_ported(cfg)
+    pos = int(pos)
+    x = embed(params["embed"], batch["tokens"])
+    for blk, bparams, cache in zip(plan, params["blocks"], caches):
+        for i in range(blk.n):
+            p = _layer(bparams, i)
+            h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+            x = x + attn.decode_attention(p["attn"], cfg, h, _layer(cache, i), pos,
+                                          local=blk.local)
+            h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+            x = x + mlp(p["mlp"], h, cfg.mlp, cfg.act)
+    return _unembed(cfg, params, x), caches

@@ -1,0 +1,107 @@
+"""The port's flash attention: its plain version against the JAX kernel (in
+interpret mode) and the JAX oracle at the shapes and tolerances of
+tests/test_kernels.py, the dispatch by device, and (on a card only) the CUDA
+kernel against the plain version (tests/test_torch_gpu.py)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")  # the machine with the card has no JAX
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
+from repro.kernels.flash_attention.ref import mha_reference as jax_mha  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import mha_reference, repeat_kv  # noqa: E402
+
+# (b, s, H, G, hd, window): tests/test_kernels.py:28-50
+SHAPES = [
+    (2, 64, 4, 4, 32, None),  # MHA
+    (2, 64, 8, 2, 32, None),  # GQA 4:1
+    (2, 96, 4, 1, 64, None),  # MQA, ragged seq vs 32-blocks
+    (2, 128, 2, 2, 16, None),
+    (1, 128, 4, 2, 32, 16),
+    (1, 128, 4, 2, 32, 32),
+    (1, 128, 4, 2, 32, 100),
+]
+
+
+def _qkv(b, s, H, G, hd, seed, dtype=np.float32, t=None):
+    r = np.random.default_rng(seed)
+    t = s if t is None else t
+    q = (0.5 * r.standard_normal((b, s, H, hd))).astype(np.float32)
+    k = (0.5 * r.standard_normal((b, t, G, hd))).astype(np.float32)
+    v = r.standard_normal((b, t, G, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,s,H,G,hd,window", SHAPES)
+def test_plain_matches_jax(b, s, H, G, hd, window):
+    q, k, v = _qkv(b, s, H, G, hd, seed=s * H + hd + (window or 0))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_kernel = np.asarray(flash_attention_tpu(jq, jk, jv, causal=True, window=window,
+                                                 block_q=32, block_k=32, interpret=True))
+    want_ref = np.asarray(jax_mha(jq, jk, jv, causal=True, window=window))
+    got = mha_reference(*map(torch.from_numpy, (q, k, v)), causal=True, window=window).numpy()
+    np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, want_ref, rtol=2e-5, atol=2e-5)
+
+
+def test_plain_bf16_matches_jax():
+    q, k, v = _qkv(1, 64, 4, 2, 32, seed=7)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(flash_attention_tpu(jq, jk, jv, block_q=32, block_k=32,
+                                          interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = mha_reference(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2, atol=3e-2)
+
+
+def test_plain_rows_sum_to_one():
+    q, k, _ = _qkv(1, 64, 2, 2, 32, seed=10)
+    v = np.ones((1, 64, 2, 32), np.float32)
+    out = mha_reference(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(out, np.ones_like(out), rtol=1e-5)
+
+
+def test_repeat_kv_order():
+    k = torch.arange(2 * 3 * 2 * 4, dtype=torch.float32).reshape(2, 3, 2, 4)
+    r = repeat_kv(k, 3)
+    assert r.shape == (2, 3, 6, 4)
+    for h in range(6):
+        assert torch.equal(r[:, :, h], k[:, :, h // 3])
+
+
+def test_cpu_dispatch_takes_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 48, 4, 2, 16, seed=3))
+    kernel.launches = 0
+    out = ops.flash_attention(q, k, v, causal=True, window=20)
+    assert kernel.launches == 0
+    torch.testing.assert_close(out, mha_reference(q, k, v, causal=True, window=20),
+                               rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 2, 16, seed=4))
+    kernel.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_cuda(q, k, v)
+    assert kernel.launches == 0
+
+
+def test_bound_at_prefill_shape():
+    """The bound chip_smoke.py reports for the qwen3-0.6b prefill attention:
+    17.2 GFLOP of causal work over the fp32 CUDA-core peak, above the
+    0.03 ms the 100.7 MB of q/k/v/o take at the HBM rate."""
+    from repro_torch import hw
+
+    b, s, H, G, hd = 4, 1024, 16, 8, 128
+    flops = 4 * hd * b * H * s * (s + 1) // 2
+    n_bytes = 4 * (2 * b * s * H * hd + 2 * b * s * G * hd)
+    t, by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
+    assert by == "operations"
+    assert abs(t - 2.5667e-4) < 1e-8
+    t_bytes, by = hw.bound_seconds(n_bytes, 0, hw.FP32_FLOPS)
+    assert by == "bytes" and abs(t_bytes - 3.005e-5) < 1e-8
