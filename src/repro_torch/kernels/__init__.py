@@ -6,5 +6,6 @@ PyTorch version) and ``ops.py`` (dispatch by device).
 once (``_build.build(SOURCES)``).
 """
 from .flash_attention import kernel as _flash_kernel
+from .rwkv6 import kernel as _wkv6_kernel
 
-SOURCES = {"flash_attention": _flash_kernel.SOURCE}
+SOURCES = {"flash_attention": _flash_kernel.SOURCE, "wkv6": _wkv6_kernel.SOURCE}

@@ -1,0 +1,2 @@
+"""RWKV6 wkv recurrence: CUDA kernel (``kernel.py``), plain versions
+(``ref.py``) and the dispatch between them (``ops.py``)."""

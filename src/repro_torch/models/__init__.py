@@ -1,1 +1,1 @@
-"""Model layers of the port (dense transformer path)."""
+"""Model layers of the port (dense transformer and rwkv paths)."""

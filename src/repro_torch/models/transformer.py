@@ -1,11 +1,12 @@
-"""LM assembly for the port: builds the ``dense`` block kind from an
-ArchConfig, in the JAX package's parameter layout.
+"""LM assembly for the port: builds the ``dense`` and ``rwkv`` block kinds
+from an ArchConfig, in the JAX package's parameter layout.
 
 A model is a sequence of blocks; each block stacks ``n`` layers of one kind
 along a leading layer axis (``params["blocks"][i]``), as in
-``repro.models.transformer``. This slice ports the ``dense`` kind (pre-norm
-GQA attention + pre-norm MLP, full or windowed attention); the other kinds
-and frontends raise ``NotImplementedError`` naming their ROADMAP item.
+``repro.models.transformer``. The port has the ``dense`` kind (pre-norm GQA
+attention + pre-norm MLP, full or windowed attention) and the ``rwkv`` kind
+(RWKV6 time-mix + channel-mix); the other kinds and frontends raise
+``NotImplementedError`` naming their ROADMAP item.
 
 API:
   init_params(cfg, seed, dtype, device)          -> params
@@ -23,14 +24,14 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import rwkv
 from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
 
-_PORTED_KINDS = ("dense",)
+_PORTED_KINDS = ("dense", "rwkv")
 _ROADMAP_ITEM = {
     "moe": "ROADMAP queue 1 item 8 (models/moe.py)",
     "mamba": "ROADMAP queue 1 item 9 (models/ssm.py and the hybrid stack)",
     "shared_attn": "ROADMAP queue 1 item 9 (models/ssm.py and the hybrid stack)",
-    "rwkv": "ROADMAP queue 1 item 7 (models/rwkv.py)",
 }
 
 
@@ -87,8 +88,15 @@ def _check_ported(cfg: ArchConfig) -> list[BlockSpec]:
 
 
 # ------------------------------------------------------------------- init --
-def _init_dense_stack(gen: torch.Generator, cfg: ArchConfig, n: int, dtype, device) -> dict:
+def _init_stack(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int, dtype,
+                device) -> dict:
     d = cfg.d_model
+    if kind == "rwkv":
+        return {
+            "norm1": torch.zeros((n, d), dtype=dtype, device=device),
+            "tm": rwkv.init_rwkv(gen, (n,), cfg, dtype, device),  # includes cm params
+            "norm2": torch.zeros((n, d), dtype=dtype, device=device),
+        }
     return {
         "norm1": torch.zeros((n, d), dtype=dtype, device=device),
         "attn": attn.init_attn(gen, (n,), cfg, dtype, device),
@@ -112,7 +120,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, device=Non
         params["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
                                    dtype, dev)
     for blk in plan:
-        params["blocks"].append(_init_dense_stack(gen, cfg, blk.n, dtype, dev))
+        params["blocks"].append(_init_stack(gen, cfg, blk.kind, blk.n, dtype, dev))
     return params
 
 
@@ -124,7 +132,17 @@ def _layer(stack: Any, i: int) -> Any:
 
 
 # ---------------------------------------------------------------- forward --
-def _layer_forward(cfg: ArchConfig, local: bool, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict,
+                   x: torch.Tensor) -> torch.Tensor:
+    if kind == "rwkv":  # zero shift and zero state; the new ones are dropped
+        b, _, d = x.shape
+        P = cfg.ssm_head_dim
+        shift0 = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        state0 = torch.zeros((b, d // P, P, P), dtype=torch.float32, device=x.device)
+        h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+        x = x + rwkv.rwkv_time_mix(p["tm"], cfg, h, shift0, state0)[0]
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        return x + rwkv.rwkv_channel_mix(p["tm"], cfg, h, shift0)[0]
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + attn.full_attention(p["attn"], cfg, h, local=local)
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -145,7 +163,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
     x = embed(params["embed"], batch["tokens"])
     for blk, bparams in zip(plan, params["blocks"]):
         for i in range(blk.n):
-            x = _layer_forward(cfg, blk.local, _layer(bparams, i), x)
+            x = _layer_forward(cfg, blk.kind, blk.local, _layer(bparams, i), x)
     logits = _unembed(cfg, params, x)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -154,10 +172,13 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> list:
     """Per-block decode caches. Windowed attention blocks get ring buffers
-    of ``window`` slots; full attention gets ``max_len``."""
+    of ``window`` slots; full attention gets ``max_len``; rwkv O(1)."""
     dev = resolve_device(device)
     caches = []
     for blk in _check_ported(cfg):
+        if blk.kind == "rwkv":
+            caches.append(rwkv.init_rwkv_cache(cfg, blk.n, batch, dtype, dev))
+            continue
         length = min(cfg.window, max_len) if blk.local else max_len
         caches.append(attn.init_kv_cache(cfg, blk.n, batch, length, dtype, dev))
     return caches
@@ -165,17 +186,33 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def decode_step(cfg: ArchConfig, params: dict, caches: list, batch: dict, pos: int):
     """One-token decode. batch: {"tokens": (b, 1)}; ``pos`` is the current
-    sequence position. The k/v of this token are written into ``caches`` in
-    place (every lane of the batch at one slot); the same list is returned."""
+    sequence position. ``caches`` is updated in place and the same list is
+    returned: attention blocks write this token's k/v (every lane of the
+    batch at one slot); rwkv blocks overwrite ``shift_tm``, ``shift_cm`` and
+    ``wkv`` with their new values (the wkv kernel writes the new state over
+    the old one)."""
     plan = _check_ported(cfg)
     pos = int(pos)
     x = embed(params["embed"], batch["tokens"])
     for blk, bparams, cache in zip(plan, params["blocks"], caches):
         for i in range(blk.n):
-            p = _layer(bparams, i)
-            h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-            x = x + attn.decode_attention(p["attn"], cfg, h, _layer(cache, i), pos,
-                                          local=blk.local)
-            h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-            x = x + mlp(p["mlp"], h, cfg.mlp, cfg.act)
+            x = _layer_decode(cfg, blk.kind, blk.local, _layer(bparams, i), x,
+                              _layer(cache, i), pos)
     return _unembed(cfg, params, x), caches
+
+
+def _layer_decode(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor,
+                  lc: dict, pos: int) -> torch.Tensor:
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if kind == "rwkv":
+        y, new_tm, _ = rwkv.rwkv_time_mix(p["tm"], cfg, h, lc["shift_tm"], lc["wkv"],
+                                          state_out=lc["wkv"])
+        lc["shift_tm"].copy_(new_tm)
+        x = x + y
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        y, new_cm = rwkv.rwkv_channel_mix(p["tm"], cfg, h, lc["shift_cm"])
+        lc["shift_cm"].copy_(new_cm)
+        return x + y
+    x = x + attn.decode_attention(p["attn"], cfg, h, lc, pos, local=local)
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp(p["mlp"], h, cfg.mlp, cfg.act)

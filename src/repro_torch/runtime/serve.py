@@ -2,8 +2,9 @@
 continuous-batching engine, as in ``repro.runtime.serve``.
 
 ``make_prefill`` runs the full-sequence forward (through the flash-attention
-kernel on the card); ``make_serve_step`` builds the one-new-token step
-(params, caches, batch, pos) -> (next_token_logits, caches).
+or the wkv6 kernel on the card); ``make_serve_step`` builds the one-new-token
+step (params, caches, batch, pos) -> (next_token_logits, caches), which
+updates ``caches`` in place.
 """
 from __future__ import annotations
 
@@ -68,7 +69,11 @@ class ServingEngine:
     Cache lanes: the JAX engine decodes all lanes and copies lane ``i`` back.
     Here decode writes the cache in place, so ``_step_slot`` decodes on a
     view of lane ``i`` alone (batch 1): it writes lane ``i`` and no other,
-    and computes the same values for it, lanes being independent.
+    and computes the same values for it, lanes being independent. As in the
+    JAX engine, admitting a request resets its slot's position but not its
+    cache lane: attention masks stale k/v by position, while the rwkv state
+    (token shifts and wkv), which has no position, carries over from the
+    slot's previous request.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_slots: int = 4,

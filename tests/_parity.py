@@ -20,14 +20,17 @@ def _perturb(tree, rng, noise):
 
 def numpy_params(cfg, seed, noise=0.1, out_scale=1.0):
     """JAX init_params as numpy, norms perturbed; ``out_scale`` multiplies the
-    attention and MLP output projections (so that layers, not the tied
-    embedding, decide greedy tokens)."""
+    output projections of every layer (attention ``wo`` and MLP ``w_out``,
+    or rwkv time-mix ``Wo`` and channel-mix ``cm_Wv``), so that layers, not
+    the embedding, decide greedy tokens."""
     params = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(seed),
                                                       jnp.float32))
     params = _perturb(params, np.random.default_rng(seed), noise)
+    outputs = (("tm", "Wo"), ("tm", "cm_Wv")) if cfg.family == "ssm" else (
+        ("attn", "wo"), ("mlp", "w_out"))
     for blk in params["blocks"]:
-        blk["attn"]["wo"] = blk["attn"]["wo"] * np.float32(out_scale)
-        blk["mlp"]["w_out"] = blk["mlp"]["w_out"] * np.float32(out_scale)
+        for part, name in outputs:
+            blk[part][name] = blk[part][name] * np.float32(out_scale)
     return params
 
 

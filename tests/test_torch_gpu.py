@@ -1,6 +1,6 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version, on the
-card. This file imports no JAX (the machine with the card has none); every
-test here needs a CUDA device and skips without one:
+"""The CUDA kernels (flash attention, wkv6) against their plain PyTorch
+versions, on the card. This file imports no JAX (the machine with the card
+has none); every test here needs a CUDA device and skips without one:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -11,6 +11,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_reference  # noqa: E402
+from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv6_reference  # noqa: E402
 
 # (b, s, H, G, hd, window, dtype, tol): the shapes and tolerances of
 # tests/test_kernels.py:28-61, and the qwen3-0.6b serving prefill shape
@@ -58,3 +61,80 @@ def test_cuda_kernel_refuses_non_contiguous(cuda):
     q, k, v = _qkv(1, 64, 4, 2, 32, seed=0, dtype=torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.flash_attention_cuda(q.transpose(1, 2), k, v)
+
+
+# ------------------------------------------------------------------- wkv6 --
+def _wkv6_inputs(b, s, H, P, seed, state_scale=0.0, model_decay=False):
+    """TestWKV6's distributions (tests/test_kernels.py:189-197), or with
+    ``model_decay`` the model's decay regime w = exp(-exp(N(0, 0.5)))."""
+    r = np.random.default_rng(seed)
+    rr = 0.5 * r.standard_normal((b, s, H, P))
+    kk = 0.5 * r.standard_normal((b, s, H, P))
+    vv = r.standard_normal((b, s, H, P))
+    if model_decay:
+        ww = np.exp(-np.exp(0.5 * r.standard_normal((b, s, H, P))))
+    else:
+        ww = 1.0 / (1.0 + np.exp(-(r.standard_normal((b, s, H, P)) + 2.0)))
+    uu = 0.5 * r.standard_normal((H, P))
+    st = state_scale * r.standard_normal((b, H, P, P))
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in (rr, kk, vv, ww, uu, st)]
+
+
+# (b, s, H, P, state scale, model decay, tol): tests/test_kernels.py:199-229
+# (s 48/64/50, the nonzero state, the P = 8 sweep) at 2e-4, P = 32 and 64,
+# and the rwkv6-7b prefill shape, where y reaches ~10 and the kernel sums
+# 64 products in another order than the plain einsum (fp32: 1e-4)
+WKV6_CASES = [
+    (1, 48, 2, 16, 0.0, False, 2e-4),
+    (1, 64, 2, 16, 0.0, False, 2e-4),
+    (1, 50, 2, 16, 0.0, False, 2e-4),
+    (1, 32, 2, 16, 1.0, False, 2e-4),
+    (1, 40, 2, 8, 0.0, False, 2e-4),
+    (2, 70, 3, 32, 0.5, False, 2e-4),
+    (2, 100, 4, 64, 0.5, True, 2e-4),
+    (4, 1024, 64, 64, 0.0, True, 1e-4),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,H,P,state_scale,model_decay,tol", WKV6_CASES)
+def test_wkv6_kernel_matches_plain(cuda, b, s, H, P, state_scale, model_decay, tol):
+    args = _wkv6_inputs(b, s, H, P, seed=s + P, state_scale=state_scale,
+                        model_decay=model_decay)
+    before = wkv6_kernel.launches
+    y, st = wkv6_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == before + 1
+    y_ref, st_ref = wkv6_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [8, 16, 64])
+def test_wkv6_kernel_decode_step_in_place(cuda, P):
+    """s = 1 with the state aliased (the decode path's cache update)."""
+    args = _wkv6_inputs(2, 1, 64 // P * 4, P, seed=P, state_scale=0.5, model_decay=True)
+    state = args[5]
+    y_ref, st_ref = wkv6_reference(*args[:5], state.clone())
+    before = wkv6_kernel.launches
+    y, st = wkv6_ops.wkv6(*args, state_out=state)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == before + 1
+    assert st is state
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, st_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_tile_invariance(cuda):
+    """The tile decides only when inputs are staged, not the order of the
+    sums: chunk 8 and 32 agree at 1e-5 (tests/test_kernels.py:215-221)."""
+    args = _wkv6_inputs(1, 64, 2, 16, seed=4)
+    before = wkv6_kernel.launches
+    y1, s1 = wkv6_kernel.wkv6_cuda(*args, chunk=8)
+    y2, s2 = wkv6_kernel.wkv6_cuda(*args, chunk=32)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == before + 2
+    torch.testing.assert_close(y1, y2, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-5)

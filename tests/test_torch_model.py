@@ -126,9 +126,23 @@ def test_device_none_means_cuda():
             call()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "dbrx-132b", "zamba2-7b", "musicgen-large",
-                                  "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-7b", "musicgen-large", "internvl2-76b"])
 def test_unported_kinds_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         tf.init_params(cfg, device="cpu")
+
+
+def test_rwkv6_builds_on_cpu():
+    """rwkv6-7b is a ported kind: random params from a seed, a forward and a
+    decode step run on the CPU with finite logits."""
+    cfg = get_config("rwkv6-7b").reduced()
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 5, seed=0)).long()
+    logits, aux = tf.forward(cfg, params, {"tokens": toks})
+    assert logits.shape == (2, 5, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert float(aux["moe_aux"]) == 0.0
+    cache = tf.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    lg, out = tf.decode_step(cfg, params, cache, {"tokens": toks[:, :1]}, 0)
+    assert out is cache and lg.shape == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(lg).all())
