@@ -25,6 +25,11 @@
 // exactly 0), and the heaviest causal q tiles are launched first. The
 // tensor-core route (wgmma on bf16, TMA, warp specialisation) comes later.
 //
+// Head dims 16, 32, 64, 112 (zamba2-7b), 120 (h2o-danube-3-4b), 128 and 256
+// are instantiated. A head dim needs HD % 4 == 0 for the float4 staging; one
+// that is not a multiple of 64 leaves the threads past HD idle in the output
+// columns (d < HD guards).
+//
 // Plain C interface for ctypes; the return value is a cudaError_t (0 on
 // success), -1 for an unsupported head dim and -2 for an unsupported dtype.
 
@@ -298,6 +303,8 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b, int
     case 16: return launch<T, 16>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
+    case 120: return launch<T, 120>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     default: return -1;

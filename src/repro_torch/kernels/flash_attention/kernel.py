@@ -18,7 +18,7 @@ import torch
 from .. import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 120, 128, 256)  # 112: zamba2-7b, 120: h2o-danube-3-4b
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

@@ -1,12 +1,17 @@
-"""LM assembly for the port: builds the ``dense`` and ``rwkv`` block kinds
-from an ArchConfig, in the JAX package's parameter layout.
+"""LM assembly for the port: builds the ``dense``, ``rwkv``, ``mamba`` and
+``shared_attn`` block kinds from an ArchConfig, in the JAX package's
+parameter layout.
 
 A model is a sequence of blocks; each block stacks ``n`` layers of one kind
 along a leading layer axis (``params["blocks"][i]``), as in
 ``repro.models.transformer``. The port has the ``dense`` kind (pre-norm GQA
-attention + pre-norm MLP, full or windowed attention) and the ``rwkv`` kind
-(RWKV6 time-mix + channel-mix); the other kinds and frontends raise
-``NotImplementedError`` naming their ROADMAP item.
+attention + pre-norm MLP, full or windowed attention), the ``rwkv`` kind
+(RWKV6 time-mix + channel-mix), the ``mamba`` kind (Mamba2 SSD) and the
+``shared_attn`` kind of zamba2 (a dense layer whose params, unstacked, live
+in ``params["shared"]`` and are shared by its occurrences, each of which has
+its own KV cache; its ``params["blocks"]`` entry is ``{}``). The ``moe`` kind
+and the other frontends raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 API:
   init_params(cfg, seed, dtype, device)          -> params
@@ -24,15 +29,11 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
-from . import rwkv
+from . import rwkv, ssm
 from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
 
-_PORTED_KINDS = ("dense", "rwkv")
-_ROADMAP_ITEM = {
-    "moe": "ROADMAP queue 1 item 8 (models/moe.py)",
-    "mamba": "ROADMAP queue 1 item 9 (models/ssm.py and the hybrid stack)",
-    "shared_attn": "ROADMAP queue 1 item 9 (models/ssm.py and the hybrid stack)",
-}
+_PORTED_KINDS = ("dense", "rwkv", "mamba", "shared_attn")
+_ROADMAP_ITEM = {"moe": "ROADMAP queue 1 item 8 (models/moe.py)"}
 
 
 @dataclass(frozen=True)
@@ -88,20 +89,25 @@ def _check_ported(cfg: ArchConfig) -> list[BlockSpec]:
 
 
 # ------------------------------------------------------------------- init --
-def _init_stack(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int, dtype,
+def _init_stack(gen: torch.Generator, cfg: ArchConfig, kind: str, lead: tuple, dtype,
                 device) -> dict:
+    """Params of one block kind with leading axes ``lead``: ``(n,)`` for a
+    stack of n layers, ``()`` for a shared layer."""
     d = cfg.d_model
+
+    def norm():
+        return torch.zeros((*lead, d), dtype=dtype, device=device)
+
     if kind == "rwkv":
-        return {
-            "norm1": torch.zeros((n, d), dtype=dtype, device=device),
-            "tm": rwkv.init_rwkv(gen, (n,), cfg, dtype, device),  # includes cm params
-            "norm2": torch.zeros((n, d), dtype=dtype, device=device),
-        }
+        return {"norm1": norm(), "tm": rwkv.init_rwkv(gen, lead, cfg, dtype, device),
+                "norm2": norm()}  # tm includes the channel-mix params
+    if kind == "mamba":
+        return {"norm": norm(), "mamba": ssm.init_mamba(gen, lead, cfg, dtype, device)}
     return {
-        "norm1": torch.zeros((n, d), dtype=dtype, device=device),
-        "attn": attn.init_attn(gen, (n,), cfg, dtype, device),
-        "norm2": torch.zeros((n, d), dtype=dtype, device=device),
-        "mlp": init_mlp(gen, (n,), d, cfg.d_ff, cfg.mlp, dtype, device),
+        "norm1": norm(),
+        "attn": attn.init_attn(gen, lead, cfg, dtype, device),
+        "norm2": norm(),
+        "mlp": init_mlp(gen, lead, d, cfg.d_ff, cfg.mlp, dtype, device),
     }
 
 
@@ -119,8 +125,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, device=Non
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
                                    dtype, dev)
+    shared: dict[int, dict] = {}
     for blk in plan:
-        params["blocks"].append(_init_stack(gen, cfg, blk.kind, blk.n, dtype, dev))
+        if blk.kind == "shared_attn":
+            if blk.shared_idx not in shared:
+                shared[blk.shared_idx] = _init_stack(gen, cfg, blk.kind, (), dtype, dev)
+            params["blocks"].append({})  # params live in params["shared"]
+        else:
+            params["blocks"].append(_init_stack(gen, cfg, blk.kind, (blk.n,), dtype, dev))
+    if shared:
+        params["shared"] = [shared[i] for i in sorted(shared)]
     return params
 
 
@@ -129,6 +143,14 @@ def _layer(stack: Any, i: int) -> Any:
     if isinstance(stack, dict):
         return {k: _layer(v, i) for k, v in stack.items()}
     return stack[i]
+
+
+def _block_layer(params: dict, blk: BlockSpec, bparams: dict, i: int) -> dict:
+    """The params of layer ``i`` of a block: a shared_attn block's one layer
+    is its shared param set."""
+    if blk.kind == "shared_attn":
+        return params["shared"][blk.shared_idx]
+    return _layer(bparams, i)
 
 
 # ---------------------------------------------------------------- forward --
@@ -143,6 +165,8 @@ def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict,
         x = x + rwkv.rwkv_time_mix(p["tm"], cfg, h, shift0, state0)[0]
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
         return x + rwkv.rwkv_channel_mix(p["tm"], cfg, h, shift0)[0]
+    if kind == "mamba":
+        return x + ssm.mamba_forward(p["mamba"], cfg, rmsnorm(x, p["norm"], cfg.norm_eps))
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + attn.full_attention(p["attn"], cfg, h, local=local)
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -163,7 +187,8 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
     x = embed(params["embed"], batch["tokens"])
     for blk, bparams in zip(plan, params["blocks"]):
         for i in range(blk.n):
-            x = _layer_forward(cfg, blk.kind, blk.local, _layer(bparams, i), x)
+            x = _layer_forward(cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i),
+                               x)
     logits = _unembed(cfg, params, x)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
@@ -172,12 +197,16 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> list:
     """Per-block decode caches. Windowed attention blocks get ring buffers
-    of ``window`` slots; full attention gets ``max_len``; rwkv O(1)."""
+    of ``window`` slots; full attention gets ``max_len``; rwkv and mamba
+    O(1). Each ``shared_attn`` occurrence has its own cache (leading axis 1)."""
     dev = resolve_device(device)
     caches = []
     for blk in _check_ported(cfg):
         if blk.kind == "rwkv":
             caches.append(rwkv.init_rwkv_cache(cfg, blk.n, batch, dtype, dev))
+            continue
+        if blk.kind == "mamba":
+            caches.append(ssm.init_mamba_cache(cfg, blk.n, batch, dtype, dev))
             continue
         length = min(cfg.window, max_len) if blk.local else max_len
         caches.append(attn.init_kv_cache(cfg, blk.n, batch, length, dtype, dev))
@@ -190,19 +219,22 @@ def decode_step(cfg: ArchConfig, params: dict, caches: list, batch: dict, pos: i
     returned: attention blocks write this token's k/v (every lane of the
     batch at one slot); rwkv blocks overwrite ``shift_tm``, ``shift_cm`` and
     ``wkv`` with their new values (the wkv kernel writes the new state over
-    the old one)."""
+    the old one); mamba blocks overwrite ``conv`` and ``ssm``."""
     plan = _check_ported(cfg)
     pos = int(pos)
     x = embed(params["embed"], batch["tokens"])
     for blk, bparams, cache in zip(plan, params["blocks"], caches):
         for i in range(blk.n):
-            x = _layer_decode(cfg, blk.kind, blk.local, _layer(bparams, i), x,
-                              _layer(cache, i), pos)
+            x = _layer_decode(cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i),
+                              x, _layer(cache, i), pos)
     return _unembed(cfg, params, x), caches
 
 
 def _layer_decode(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor,
                   lc: dict, pos: int) -> torch.Tensor:
+    if kind == "mamba":
+        return x + ssm.mamba_decode_step(p["mamba"], cfg, rmsnorm(x, p["norm"], cfg.norm_eps),
+                                         lc)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if kind == "rwkv":
         y, new_tm, _ = rwkv.rwkv_time_mix(p["tm"], cfg, h, lc["shift_tm"], lc["wkv"],

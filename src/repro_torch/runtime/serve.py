@@ -1,8 +1,8 @@
 """Serving runtime: prefill and decode-step factories and a
 continuous-batching engine, as in ``repro.runtime.serve``.
 
-``make_prefill`` runs the full-sequence forward (through the flash-attention
-or the wkv6 kernel on the card); ``make_serve_step`` builds the one-new-token
+``make_prefill`` runs the full-sequence forward (through the flash-attention,
+wkv6 and SSD-scan kernels on the card); ``make_serve_step`` builds the one-new-token
 step (params, caches, batch, pos) -> (next_token_logits, caches), which
 updates ``caches`` in place.
 """
@@ -72,8 +72,9 @@ class ServingEngine:
     and computes the same values for it, lanes being independent. As in the
     JAX engine, admitting a request resets its slot's position but not its
     cache lane: attention masks stale k/v by position, while the rwkv state
-    (token shifts and wkv), which has no position, carries over from the
-    slot's previous request.
+    (token shifts and wkv) and the mamba state (``conv`` history and
+    ``ssm``), which have no position, carry over from the slot's previous
+    request.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_slots: int = 4,

@@ -21,16 +21,20 @@ def _perturb(tree, rng, noise):
 def numpy_params(cfg, seed, noise=0.1, out_scale=1.0):
     """JAX init_params as numpy, norms perturbed; ``out_scale`` multiplies the
     output projections of every layer (attention ``wo`` and MLP ``w_out``,
-    or rwkv time-mix ``Wo`` and channel-mix ``cm_Wv``), so that layers, not
-    the embedding, decide greedy tokens."""
+    rwkv time-mix ``Wo`` and channel-mix ``cm_Wv``, mamba ``w_out``, and the
+    shared blocks' ``wo`` and ``w_out``), so that layers, not the embedding,
+    decide greedy tokens."""
     params = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(seed),
                                                       jnp.float32))
     params = _perturb(params, np.random.default_rng(seed), noise)
-    outputs = (("tm", "Wo"), ("tm", "cm_Wv")) if cfg.family == "ssm" else (
-        ("attn", "wo"), ("mlp", "w_out"))
-    for blk in params["blocks"]:
-        for part, name in outputs:
-            blk[part][name] = blk[part][name] * np.float32(out_scale)
+    outputs = {"tm": ("Wo", "cm_Wv"), "attn": ("wo",), "mlp": ("w_out",),
+               "mamba": ("w_out",)}
+    # the hybrid stack's shared_attn blocks are {} in "blocks"; their layers
+    # are the "shared" list
+    for layer in params["blocks"] + params.get("shared", []):
+        for part in outputs.keys() & layer.keys():
+            for name in outputs[part]:
+                layer[part][name] = layer[part][name] * np.float32(out_scale)
     return params
 
 

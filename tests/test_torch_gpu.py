@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, wkv6) against their plain PyTorch
-versions, on the card. This file imports no JAX (the machine with the card
+"""The CUDA kernels (flash attention, wkv6, the SSD scan) against their plain
+PyTorch versions, on the card. This file imports no JAX (the machine with the card
 has none); every test here needs a CUDA device and skips without one:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -14,11 +14,18 @@ from repro_torch.kernels.flash_attention.ref import mha_reference  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference  # noqa: E402
 
 # (b, s, H, G, hd, window, dtype, tol): the shapes and tolerances of
-# tests/test_kernels.py:28-61, and the qwen3-0.6b serving prefill shape
-# (1024-long fp32 sums in another order than the plain softmax: 1e-4)
+# tests/test_kernels.py:28-61, head dims 112 (zamba2-7b's shared blocks, MHA)
+# and 120 (h2o-danube-3-4b, windowed), and the qwen3-0.6b serving prefill
+# shape (1024-long fp32 sums in another order than the plain softmax: 1e-4)
 CASES = [
+    (2, 96, 4, 4, 112, None, torch.float32, 2e-5),
+    (1, 130, 4, 2, 120, 64, torch.float32, 2e-5),
+    (1, 64, 4, 4, 112, None, torch.bfloat16, 3e-2),
     (2, 64, 4, 4, 32, None, torch.float32, 2e-5),
     (2, 64, 8, 2, 32, None, torch.float32, 2e-5),
     (2, 96, 4, 1, 64, None, torch.float32, 2e-5),
@@ -138,3 +145,72 @@ def test_wkv6_kernel_tile_invariance(cuda):
     assert wkv6_kernel.launches == before + 2
     torch.testing.assert_close(y1, y2, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------- ssd scan --
+def _ssd_inputs(b, s, H, P, N, seed, model=False):
+    """TestSSDScan's distributions (tests/test_kernels.py:139-146): xh, B, C ~
+    N(0, 1), dt = softplus(N(0, 1)), A = -exp(0.5 N(0, 1)); the model draws dt
+    and A the same way (dt_bias 0, A_log ~ N(0, 0.5))."""
+    r = np.random.default_rng(seed)
+    xh = r.standard_normal((b, s, H, P))
+    dt = np.logaddexp(r.standard_normal((b, s, H)), 0.0)
+    A = -np.exp(0.5 * r.standard_normal(H))
+    B = r.standard_normal((b, s, N))
+    C = r.standard_normal((b, s, N))
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in (xh, dt, A, B, C)]
+
+
+# (b, s, H, P, N, tol): the TestSSDScan lengths (64, 96, ragged 100) at
+# b=1, H=2, P=16, N=8 and 2e-4, the reduced zamba2 shape, and one
+# (P, N) = (64, 64) case at the zamba2-7b head count, where each y sums 64
+# products in another order than the plain einsum (1e-4)
+SSD_CASES = [
+    (1, 64, 2, 16, 8, 2e-4),
+    (1, 96, 2, 16, 8, 2e-4),
+    (1, 100, 2, 16, 8, 2e-4),
+    (2, 70, 8, 32, 16, 2e-4),
+    (2, 200, 112, 64, 64, 1e-4),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,H,P,N,tol", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, b, s, H, P, N, tol):
+    """y and the final state against the sequential recurrence, and the
+    dispatch (y only) through the kernel."""
+    args = _ssd_inputs(b, s, H, P, N, seed=s + P + N)
+    before = ssd_kernel.launches
+    y, h = ssd_kernel.ssd_scan_cuda(*args)
+    y_ops = ssd_ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 2
+    y_ref, h_ref = ssd_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=tol, atol=tol)
+    assert torch.equal(y_ops, y)
+    torch.testing.assert_close(ssd_chunked(*args), y, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [32, 48, 64])
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("N", [4, 8])
+def test_ssd_kernel_sweep(cuda, s, P, N):
+    """tests/test_kernels.py:176-184 (the property sweep, every draw), 3e-4."""
+    args = _ssd_inputs(1, s, 2, P, N, seed=s + P + N)
+    y, h = ssd_kernel.ssd_scan_cuda(*args)
+    y_ref, h_ref = ssd_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(h, h_ref, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_tile_invariance(cuda):
+    """The tile decides only when inputs are staged, not the order of the
+    sums: tiles of 8, 32 and 42 steps give the same bits."""
+    args = _ssd_inputs(1, 100, 4, 64, 64, seed=4)
+    outs = [ssd_kernel.ssd_scan_cuda(*args, chunk=c) for c in (8, 32, 42)]
+    torch.cuda.synchronize()
+    for y, h in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])

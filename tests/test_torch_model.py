@@ -126,7 +126,7 @@ def test_device_none_means_cuda():
             call()
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-7b", "musicgen-large", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "musicgen-large", "internvl2-76b"])
 def test_unported_kinds_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
@@ -146,3 +146,25 @@ def test_rwkv6_builds_on_cpu():
     lg, out = tf.decode_step(cfg, params, cache, {"tokens": toks[:, :1]}, 0)
     assert out is cache and lg.shape == (2, 1, cfg.vocab_size)
     assert bool(torch.isfinite(lg).all())
+
+
+def test_zamba2_init_params_builds_jax_tree():
+    """zamba2-7b is a ported kind: ``init_params`` builds the JAX tree's
+    structure and shapes (stacked mamba blocks, ``{}`` for each shared_attn
+    occurrence, ``params["shared"]`` with the unstacked shared blocks), and a
+    forward and a decode step run on the CPU with finite logits."""
+    jcfg, cfg = jget("zamba2-7b").reduced(), get_config("zamba2-7b").reduced()
+    jshapes = jax.tree.map(lambda a: tuple(a.shape),
+                           jax.eval_shape(lambda: jtf.init_params(jcfg, jax.random.PRNGKey(0),
+                                                                  jnp.float32)))
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    assert jax.tree.map(lambda a: tuple(a.shape), bridge.params_to_numpy(params)) == jshapes
+    assert [sorted(b) for b in params["blocks"]] == [["mamba", "norm"], [],
+                                                     ["mamba", "norm"], []]
+    assert len(params["shared"]) == jcfg.n_shared_attn
+    toks = torch.from_numpy(_tokens(cfg, 2, 5, seed=0)).long()
+    logits, _ = tf.forward(cfg, params, {"tokens": toks})
+    assert logits.shape == (2, 5, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    cache = tf.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    lg, out = tf.decode_step(cfg, params, cache, {"tokens": toks[:, :1]}, 0)
+    assert out is cache and bool(torch.isfinite(lg).all())

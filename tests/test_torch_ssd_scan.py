@@ -1,0 +1,193 @@
+"""The port's SSD scan: its plain versions against the JAX oracle, the JAX
+model's chunked form and the JAX kernel (in interpret mode) at the shapes and
+tolerances of tests/test_kernels.py (TestSSDScan), the final state against
+the explicit recurrence, the dispatch by device, and the checks of the CUDA
+wrapper, which run before anything is built. The CUDA kernel itself is
+checked on a card (tests/test_torch_gpu.py)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")  # the machine with the card has no JAX
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd_scan.kernel import ssd_scan_tpu  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_reference as jax_reference  # noqa: E402
+from repro.models.ssm import ssd_chunked as jax_chunked  # noqa: E402
+from repro_torch.kernels import SOURCES  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel, ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference  # noqa: E402
+
+TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_kernels.py:152-160 (kernel, chunked vs oracle)
+SWEEP_TOL = dict(rtol=3e-4, atol=3e-4)  # tests/test_kernels.py:184 (the property sweep)
+
+
+def _inputs(b=1, s=64, H=2, P=16, N=8, seed=0):
+    """TestSSDScan's distributions, drawn with numpy: xh, B, C ~ N(0, 1),
+    dt = softplus(N(0, 1)), A = -exp(0.5 N(0, 1))."""
+    r = np.random.default_rng(seed)
+    xh = r.standard_normal((b, s, H, P))
+    dt = np.logaddexp(r.standard_normal((b, s, H)), 0.0)
+    A = -np.exp(0.5 * r.standard_normal(H))
+    B = r.standard_normal((b, s, N))
+    C = r.standard_normal((b, s, N))
+    return tuple(a.astype(np.float32) for a in (xh, dt, A, B, C))
+
+
+def _torch(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _jax(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def _recurrence_state(xh, dt, A, B, C):
+    """The final state by the explicit numpy recurrence
+    (tests/test_kernels.py:163-171)."""
+    b, s, H, P = xh.shape
+    h = np.zeros((b, H, B.shape[-1], P), np.float32)
+    for t in range(s):
+        decay = np.exp(dt[:, t] * A[None])
+        h = h * decay[:, :, None, None] + np.einsum("bh,bn,bhp->bhnp", dt[:, t], B[:, t],
+                                                    xh[:, t])
+    return h
+
+
+# (s, jax kernel chunk): tests/test_kernels.py:148, ragged s = 100 included
+CASES = [(64, 16), (64, 64), (96, 32), (100, 32)]
+
+
+@pytest.mark.parametrize("s,chunk", CASES)
+def test_reference_matches_jax_oracle_and_kernel(s, chunk):
+    """y against the JAX oracle; y and the final state against ssd_scan_tpu."""
+    arrs = _inputs(s=s, seed=s + chunk)
+    y, h = ssd_reference(*_torch(arrs))
+    assert y.shape == arrs[0].shape and h.shape == (1, 2, 8, 16)
+    _close(y, jax_reference(*_jax(arrs)), TOL)
+    y_k, h_k = ssd_scan_tpu(*_jax(arrs), chunk=chunk, interpret=True)
+    _close(y, y_k, TOL)
+    _close(h, h_k, TOL)
+
+
+@pytest.mark.parametrize("s,chunk", CASES + [(80, 32), (100, 128)])
+def test_chunked_matches_jax_chunked_and_recurrence(s, chunk):
+    """tests/test_kernels.py:154-159 (ssd_chunked vs the recurrence), and the
+    JAX model's own chunked form at the same chunk."""
+    arrs = _inputs(s=s, seed=s + chunk + 1)
+    t = _torch(arrs)
+    got = ssd_chunked(*t, chunk=chunk)
+    _close(got, jax_chunked(*_jax(arrs), chunk=chunk), TOL)
+    _close(got, ssd_reference(*t)[0], TOL)
+
+
+def test_final_state_matches_recurrence():
+    """tests/test_kernels.py:161-171."""
+    arrs = _inputs(s=64, seed=2)
+    _, h = ssd_reference(*_torch(arrs))
+    np.testing.assert_allclose(h.numpy(), _recurrence_state(*arrs), **TOL)
+
+
+@pytest.mark.parametrize("s", [32, 48, 64])
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("N", [4, 8])
+def test_reference_sweep_matches_jax_kernel(s, P, N):
+    """tests/test_kernels.py:176-184 (the property sweep, every draw), at 3e-4."""
+    arrs = _inputs(s=s, P=P, N=N, seed=s + P + N)
+    y, h = ssd_reference(*_torch(arrs))
+    y_k, h_k = ssd_scan_tpu(*_jax(arrs), chunk=16, interpret=True)
+    _close(y, y_k, SWEEP_TOL)
+    _close(h, h_k, SWEEP_TOL)
+
+
+def test_cpu_dispatch_takes_chunked():
+    """On the CPU ``ops.ssd_scan`` is ``ssd_chunked`` at chunk 128 (the JAX
+    model's CPU path), bit for bit, with no kernel launch."""
+    t = _torch(_inputs(s=40, seed=7))
+    kernel.launches = 0
+    y = ops.ssd_scan(*t)
+    assert kernel.launches == 0
+    assert torch.equal(y, ssd_chunked(*t))
+
+
+def test_dispatch_refuses_other_devices():
+    t = [a.to("meta") for a in _torch(_inputs(s=4, seed=3))]
+    with pytest.raises(ValueError, match="meta"):
+        ops.ssd_scan(*t)
+
+
+def test_wrapper_refuses_cpu_tensors():
+    kernel.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.ssd_scan_cuda(*_torch(_inputs(s=4, seed=3)))
+    assert kernel.launches == 0
+
+
+def test_wrapper_refuses_non_fp32():
+    t = _torch(_inputs(s=4, seed=3))
+    t[3] = t[3].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="fp32"):
+        kernel.ssd_scan_cuda(*t)
+
+
+def test_wrapper_refuses_non_contiguous():
+    t = _torch(_inputs(s=4, H=4, seed=3))
+    t[0] = t[0].transpose(1, 2).contiguous().transpose(1, 2)  # same shape, other strides
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.ssd_scan_cuda(*t)
+
+
+@pytest.mark.parametrize("P,N", [(64, 16), (32, 64), (12, 8), (16, 16)])
+def test_wrapper_refuses_unbuilt_shapes(P, N):
+    with pytest.raises(ValueError, match=r"\(P, N\) = \(%d, %d\) not built" % (P, N)):
+        kernel.ssd_scan_cuda(*_torch(_inputs(s=4, P=P, N=N, seed=3)))
+
+
+def test_wrapper_refuses_bad_shapes_and_chunk():
+    t = _torch(_inputs(s=4, seed=3))
+    with pytest.raises(ValueError, match="want dt"):
+        kernel.ssd_scan_cuda(t[0], t[1][:, :3], *t[2:])
+    with pytest.raises(ValueError, match="want dt"):
+        kernel.ssd_scan_cuda(*t[:4], t[4][..., :4])
+    with pytest.raises(ValueError, match="chunk"):
+        kernel.ssd_scan_cuda(*t, chunk=kernel.TILE_FLOATS // (16 + 2 * 8 + 1) + 1)
+    with pytest.raises(ValueError, match="chunk"):
+        kernel.ssd_scan_cuda(*t, chunk=0)
+    with pytest.raises(ValueError, match="empty"):
+        kernel.ssd_scan_cuda(t[0][:, :0], t[1][:, :0], t[2], t[3][:, :0], t[4][:, :0])
+
+
+def test_default_chunk_is_legal_for_every_shape():
+    for P, N in kernel.SHAPES:
+        assert kernel.DEFAULT_CHUNK * (P + 2 * N + 1) <= kernel.TILE_FLOATS
+
+
+def test_source_is_listed():
+    assert SOURCES["ssd_scan"] == kernel.SOURCE and kernel.SOURCE.exists()
+    text = kernel.SOURCE.read_text()
+    assert "src/repro/kernels/ssd_scan/kernel.py:78" in text
+    assert 'extern "C" int ssd_scan_fwd' in text
+    for P, N in kernel.SHAPES:
+        assert f"SSD_CASE({P}, {N})" in text
+
+
+def test_bound_at_prefill_shape():
+    """The bound chip_smoke.py reports for the zamba2-7b prefill (b=4, s=1024,
+    H=112, P=64, N=64): 7.52 GFLOP (4 N P a step and head) at the fp32 peak,
+    above the 246.2 MB of xh, y, dt, A, B, C and the final state at the HBM
+    rate."""
+    from repro_torch import hw
+
+    b, s, H, P, N = 4, 1024, 112, 64, 64
+    n_bytes = 4 * (2 * b * s * H * P + b * s * H + H + 2 * b * s * N + b * H * N * P)
+    flops = 4 * b * s * H * P * N
+    t, by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
+    assert by == "operations"
+    assert abs(t - 1.1218e-4) < 1e-8
+    t_bytes, _ = hw.bound_seconds(n_bytes, 0, hw.FP32_FLOPS)
+    assert abs(t_bytes - 7.348e-5) < 1e-8
