@@ -11,7 +11,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. kernel check: each kernel against its plain PyTorch version on the card
    (flash attention, head dims 112 and 120 included; wkv6, also against its
    tile size and with the state updated in place; the SSD scan, y and final
-   state, also against the chunked plain version and its tile size);
+   state, also against the chunked plain version and its tile size; the INT8
+   GEMM bit for bit at the TestGemmInt8 inputs);
 3. three main paths at full width, fp32, random weights from a seed, one
    after the other (each one's weights are freed before the next):
    qwen3-0.6b (28 layers, the flash-attention kernel), rwkv6-7b (32 layers,
@@ -26,13 +27,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    c. serving: ``ServingEngine`` (4 slots) drains 8 requests;
    d. with ``--profile`` only: where the time goes, from ``torch.profiler``
       windows over one prefill and over one-lane decode steps;
-4. timing: each kernel, its plain version and the PyTorch library call (where
-   one exists) at its prefill shape, beside the card's bound.
+4. the paper's INT8 PU GEMM on ResNet-50's own GEMMs: the 54 GEMM nodes of
+   the network at 256x256 (22 distinct shapes, ``RESNET50_GEMMS``), at batch
+   1 and 16, each node with its own operands, each output bit-equal to the
+   plain version, the network timed;
+5. the pipeline executor: h2o-danube-3-4b at full width (24 layers, sliding
+   window 4096) in 4 stages on one CUDA stream each, the stage programs'
+   tokens as CUDA events, 4 microbatches of 1 x 4608 tokens (beyond the
+   window), against the plain forward on the same tokens at 2e-3, its token
+   operations equal to what the programs prescribe;
+6. timing: each kernel, its plain version and the PyTorch library call (where
+   one exists) at its main-path shape, beside the card's bound; each row of
+   the kernels line says how (``timed``: ``events``, CUDA events around
+   launches from Python, or ``graph``, device time from a CUDA graph).
 
-Every launch count is set to 0 just before a path's prefill and read just
-after its serving phase: each of the path's kernels must have launched its
-expected number of times per prefill call and per decode step, and the
-other kernels not at all. The last three lines are the
+Every launch count is set to 0 just before a path's first call and read just
+after its last: each of the path's kernels must have launched its expected
+number of times (per prefill call and decode step, per network pass, per
+pipeline and forward call), and the other kernels not at all. The last three
+lines are the
 kernels JSON, the card, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repository, it exits non-zero and prints
 no result.
@@ -102,6 +115,44 @@ WKV6_TOL, WKV6_PREFILL_TOL, WKV6_TILE_TOL, WKV6_CHUNKED_TOL = 2e-4, 1e-4, 1e-5, 
 # rtol = atol = 1e-4 as the wkv6 prefill is.
 # The tile only decides when inputs are staged: tiles agree bit for bit.
 SSD_TOL, SSD_SWEEP_TOL, SSD_CHUNKED_TOL, SSD_PREFILL_TOL = 2e-4, 3e-4, 2e-4, 1e-4
+# The GEMM nodes of ResNet-50 at 256x256 as the repo's compiler lowers and
+# fuses them (repro.compiler: fuse(zoo.resnet50(256))), one row per distinct
+# shape, named by its first node: (name, m = output channels, n = positions
+# per image, k = in_ch * kh * kw, relu, residual, count). 54 nodes; every one
+# requantises by RESNET50_SHIFT. tests/test_torch_gemm_int8.py holds the table
+# to the lowering.
+RESNET50_GEMMS = [
+    ("conv1", 64, 16384, 147, True, False, 1),
+    ("layer1.0.downsample", 256, 4096, 64, False, False, 1),
+    ("layer1.0.conv1", 64, 4096, 64, True, False, 1),
+    ("layer1.0.conv2", 64, 4096, 576, True, False, 3),
+    ("layer1.0.conv3+add", 256, 4096, 64, True, True, 3),
+    ("layer1.1.conv1", 64, 4096, 256, True, False, 2),
+    ("layer2.0.downsample", 512, 1024, 256, False, False, 1),
+    ("layer2.0.conv1", 128, 4096, 256, True, False, 1),
+    ("layer2.0.conv2", 128, 1024, 1152, True, False, 4),
+    ("layer2.0.conv3+add", 512, 1024, 128, True, True, 4),
+    ("layer2.1.conv1", 128, 1024, 512, True, False, 3),
+    ("layer3.0.downsample", 1024, 256, 512, False, False, 1),
+    ("layer3.0.conv1", 256, 1024, 512, True, False, 1),
+    ("layer3.0.conv2", 256, 256, 2304, True, False, 6),
+    ("layer3.0.conv3+add", 1024, 256, 256, True, True, 6),
+    ("layer3.1.conv1", 256, 256, 1024, True, False, 5),
+    ("layer4.0.downsample", 2048, 64, 1024, False, False, 1),
+    ("layer4.0.conv1", 512, 256, 1024, True, False, 1),
+    ("layer4.0.conv2", 512, 64, 4608, True, False, 3),
+    ("layer4.0.conv3+add", 2048, 64, 512, True, True, 3),
+    ("layer4.1.conv1", 512, 64, 2048, True, False, 2),
+    ("fc", 1000, 1, 2048, False, False, 1),
+]
+RESNET50_SHIFT = 7
+RESNET50_BATCHES, RESNET50_ITERS = (1, 16), 10
+# the gemm_int8 row of the kernels line: layer3's 3x3 conv, the most frequent
+# GEMM (6 a network), at batch 16: M = 16 x 256 positions, N = 256, K = 2304
+GEMM_TIMED = ("layer3.0.conv2", 16)
+PIPE_ARCH = "h2o-danube-3-4b"
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN = 4, 4, 1, 4608
+PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
 
 
 def card_line() -> str:
@@ -123,6 +174,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device time a call of ``fn``, from a CUDA graph of ``calls`` calls
+    replayed ``replays`` times: the host's cost of a launch (the wrapper's
+    checks, ctypes) stays out of the timed region, unlike ``cuda_ms``."""
+    side = torch.cuda.Stream()  # warm on a side stream, as PyTorch's CUDA-graph notes ask
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def qkv(b, s, H, G, hd, seed, dtype, t=None, ones_v=False):
@@ -173,12 +250,13 @@ def max_err(got, want) -> float:
 
 
 def kernel_summary(prof, n_top: int = 8) -> dict:
-    """Device time by kernel name and the union of kernel intervals (us)."""
+    """Device time by kernel name and the union of kernel intervals (us);
+    a scheduled window's ``ProfilerStep`` span is not a kernel."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], defaultdict(float)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             start, end = e.time_range.start, e.time_range.end
             spans.append((start, end))
             by_name[e.name] += end - start
@@ -196,30 +274,41 @@ def kernel_summary(prof, n_top: int = 8) -> dict:
             "top": [(name[:80], round(us, 1)) for name, us in top]}
 
 
+def profile_window(fn, wall_ms: float) -> dict:
+    """A profiler window over a second call of ``fn`` (the first warms the
+    tracer, which can miss a window's first kernels): device time by kernel,
+    busy time (the union of kernel intervals) and the idle share 1 - busy /
+    ``wall_ms``, the unprofiled wall of the same work. Calls ``fn`` twice."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    done = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: done.append(kernel_summary(p))) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    summ = done[0]
+    summ.update(wall_us=wall_ms * 1e3, idle_share=1 - summ["busy_us"] / (wall_ms * 1e3))
+    return summ
+
+
 def profile_phase(cfg, params, prefill, batch, step, init_cache, rng, report) -> None:
     """Wall time without the profiler (CUDA events for prefill, host clock
     around synchronised steps for decode), then a profiler window over the
-    same work: device time by kernel, busy time (union of kernel intervals)
-    and the idle share 1 - busy / unprofiled wall."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    same work (``profile_window``)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     prefill(params, batch)
     end.record()
     end.synchronize()
-    wall_us = start.elapsed_time(end) * 1e3
-    with profile(activities=acts) as prof:
-        prefill(params, batch)
-        torch.cuda.synchronize()
-    summ = kernel_summary(prof)
-    summ.update(wall_us=wall_us, idle_share=1 - summ["busy_us"] / wall_us)
+    summ = profile_window(lambda: prefill(params, batch), start.elapsed_time(end))
     report(f"profile {cfg.name} prefill {PREFILL_BATCH}x{PREFILL_LEN}: {json.dumps(summ)}")
 
     # one lane (what ServingEngine._step_slot runs); the engine reads each token
     cache = init_cache(cfg, 1, DECODE_LEN, dtype=torch.float32)
-    toks = [int(x) for x in rng.integers(0, cfg.vocab_size, DECODE_WARM + 2 * DECODE_STEPS)]
+    toks = [int(x) for x in rng.integers(0, cfg.vocab_size, DECODE_WARM + 3 * DECODE_STEPS)]
     pos = 0
 
     def steps(n: int) -> None:
@@ -234,12 +323,10 @@ def profile_phase(cfg, params, prefill, batch, step, init_cache, rng, report) ->
     t0 = time.perf_counter()
     steps(DECODE_STEPS)
     torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) / DECODE_STEPS * 1e6
-    with profile(activities=acts) as prof:
-        steps(DECODE_STEPS)
-        torch.cuda.synchronize()
-    summ = kernel_summary(prof)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    summ = profile_window(lambda: steps(DECODE_STEPS), wall_ms)
     busy = summ["busy_us"] / DECODE_STEPS
+    wall_us = wall_ms * 1e3 / DECODE_STEPS
     report(f"profile {cfg.name} decode step (1 lane, cache {DECODE_LEN}): " + json.dumps(
         {"kernels_per_step": summ["kernels"] / DECODE_STEPS, "busy_us_per_step": busy,
          "wall_us_per_step": wall_us, "idle_share": 1 - busy / wall_us, "top": summ["top"]}))
@@ -393,7 +480,8 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
 
 def check_flash_attention(fa_kernel, mha_reference, report) -> float:
     """The flash-attention kernel against its plain version; returns the
-    larger error at the two prefill shapes (qwen3-0.6b, zamba2-7b) in fp32."""
+    largest error at the shapes the paths run in fp32 (the qwen3-0.6b and
+    zamba2-7b prefills, the h2o-danube-3-4b pipeline)."""
     # (b, s, H, G, hd, window, dtype, tol, label): tests/test_kernels.py:28-85
     # shapes and tolerances, head dims 112 (zamba2-7b's shared blocks: MHA,
     # 32 heads) and 120 (h2o-danube-3-4b, windowed), plus the prefills'
@@ -402,6 +490,9 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
     # bf16 3e-2 is near the size of the outputs themselves (~1/sqrt(row)),
     # so in bf16 the kernel is also held to at most twice the plain bf16
     # version's own error, both against fp32 math on the same bf16 inputs.
+    # The h2o-danube-3-4b pipeline's shape (s 4608 beyond the window 4096, so
+    # the window cuts keys) sums up to 4096 terms a row in another order:
+    # held to 1e-4 as the prefills are.
     cases = [
         (2, 64, 4, 4, 32, None, torch.float32, 2e-5, "MHA"),
         (2, 64, 8, 2, 32, None, torch.float32, 2e-5, "GQA 4:1"),
@@ -420,6 +511,7 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         (1, 64, 4, 2, 120, None, torch.bfloat16, 3e-2, "hd 120 bf16"),
         (PREFILL_BATCH, PREFILL_LEN, 32, 32, 112, None, torch.float32, 1e-4,
          "zamba2 prefill fp32"),
+        (PIPE_MB, PIPE_LEN, 32, 8, 120, 4096, torch.float32, 1e-4, "h2o pipeline fp32"),
     ]
     slice_err = 0.0
     for i, (b, s, H, G, hd, window, dtype, tol, label) in enumerate(cases):
@@ -441,7 +533,7 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         torch.cuda.synchronize()
         report(f"kernel check flash_attention {label} b={b} s={s} H={H} G={G} hd={hd} "
                f"window={window} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol}){extra}")
-        if label.endswith("prefill fp32"):
+        if label.endswith(("prefill fp32", "pipeline fp32")):
             slice_err = max(slice_err, err)
     q, k, v = qkv(1, 64, 2, 2, 32, seed=SEED, dtype=torch.float32, ones_v=True)
     out = fa_kernel.flash_attention_cuda(q, k, v)
@@ -588,7 +680,312 @@ def time_flash(fa_kernel, mha_reference, hw, b, s, H, G, hd, report) -> dict:
            f"({flops / 1e9:.2f} GFLOP at fp32 CUDA-core peak {hw.FP32_FLOPS / 1e12:.0f} "
            f"TFLOP/s; {n_bytes / 1e6:.1f} MB at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "timed": "events"}
+
+
+def gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
+    """int8 a (m, k) and w (k, n) uniform on [-128, 128), int32 bias on
+    [-bias_range, bias_range), int8 residual (m, n), from a seeded generator
+    on the card."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def ints(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dtype)
+
+    return (ints((m, k), -128, 128, torch.int8), ints((k, n), -128, 128, torch.int8),
+            ints((n,), -bias_range, bias_range, torch.int32),
+            ints((m, n), -128, 128, torch.int8) if residual else None)
+
+
+def check_gemm_int8(gemm_kernel, report) -> int:
+    """The INT8 GEMM kernel against its plain version, bit for bit; returns the
+    largest |difference| (0)."""
+    from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference
+
+    x = torch.ones((2, 2), dtype=torch.int32, device="cuda")
+    try:  # a fact about this PyTorch build, reported; the plain version never tries it
+        x @ x
+        int_mm = "takes int32"
+    except RuntimeError as e:
+        int_mm = f"refuses int32 ({str(e).splitlines()[0][:80]})"
+    report(f"torch.matmul on CUDA {int_mm}: the plain gemm_int8 takes its product in float64")
+
+    # (m, n, k, shift, relu, residual, bias range, label): the TestGemmInt8
+    # inputs, tests/test_kernels.py:93-134, the sweep at every draw's shift
+    # and ReLU
+    cases = [(64, 64, 64, 7, False, False, 1000, "64x64x64"),
+             (128, 128, 256, 7, False, False, 1000, "128x128x256"),
+             (100, 72, 300, 7, False, False, 1000, "100x72x300 ragged"),
+             (64, 64, 128, 7, True, True, 1, "residual + ReLU")]
+    cases += [(m, 32, k, shift, relu, False, 64, f"sweep shift {shift} relu {relu}")
+              for m, k in ((16, 64), (48, 96)) for shift in (0, 4, 8) for relu in (False, True)]
+    worst = 0
+    for i, (m, n, k, shift, relu, residual, br, label) in enumerate(cases):
+        a, w, b, res = gemm_inputs(m, n, k, seed=SEED + 300 + i, residual=residual,
+                                   bias_range=br)
+        got = gemm_kernel.gemm_int8_cuda(a, w, b, res, shift=shift, relu=relu)
+        want = gemm_int8_reference(a, w, b, shift=shift, relu=relu, residual=res)
+        err = int((got.int() - want.int()).abs().max())
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"gemm_int8 {label}: kernel differs from the plain version "
+                                 f"by up to {err}")
+    a = torch.full((32, 512), 127, dtype=torch.int8, device="cuda")
+    w = torch.full((512, 32), 127, dtype=torch.int8, device="cuda")
+    zero = torch.zeros(32, dtype=torch.int32, device="cuda")
+    sat = gemm_kernel.gemm_int8_cuda(a, w, zero, shift=0, relu=False)
+    neg = gemm_kernel.gemm_int8_cuda(a, -w, zero, shift=0, relu=False)
+    if not (bool((sat == 127).all()) and bool((neg == -128).all())):
+        raise AssertionError("gemm_int8 does not saturate at shift 0")
+    # negative accumulators at odd shifts: the shift must be arithmetic
+    a = torch.full((16, 32), -3, dtype=torch.int8, device="cuda")
+    w = torch.full((32, 16), 5, dtype=torch.int8, device="cuda")
+    b = torch.arange(-8, 8, dtype=torch.int32, device="cuda") * 37
+    for shift in (1, 3, 5, 7):
+        got = gemm_kernel.gemm_int8_cuda(a, w, b, shift=shift, relu=False)
+        if not torch.equal(got, gemm_int8_reference(a, w, b, shift=shift)):
+            raise AssertionError(f"gemm_int8 negative accumulators at shift {shift}")
+    # float64 on the card is the int32 product: at ResNet-50's largest K, with
+    # the largest |acc| (every term 2^14) and random inputs
+    for label, (a, w, b, _) in (
+            ("extreme", (torch.full((256, 4608), -128, dtype=torch.int8, device="cuda"),
+                         torch.full((4608, 256), -128, dtype=torch.int8, device="cuda"),
+                         torch.zeros(256, dtype=torch.int32, device="cuda"), None)),
+            ("random", gemm_inputs(256, 256, 4608, seed=SEED + 399))):
+        for shift in (0, 7, 20):
+            card = gemm_int8_reference(a, w, b, shift=shift)
+            cpu = gemm_int8_reference(a.cpu(), w.cpu(), b.cpu(), shift=shift)
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"plain gemm_int8 on the card (float64) differs from "
+                                     f"the CPU's int32 product ({label}, shift {shift})")
+    torch.cuda.synchronize()
+    report(f"kernel check gemm_int8 TestGemmInt8 inputs ({len(cases)} cases), saturation, "
+           f"negative accumulators at odd shifts: bit-equal to the plain version (max |diff| "
+           f"{worst}); the plain version on the card equals the CPU's int32 product at K 4608")
+    return worst
+
+
+def drive_resnet50(kernel_mods, report, profile=False) -> dict:
+    """The INT8 PU GEMM on ResNet-50's 54 GEMM nodes at each batch of
+    RESNET50_BATCHES: kernel M = batch x positions, N = output channels, K =
+    in_ch * kh * kw, shift 7, each node's ReLU and residual. One checked pass
+    (every output bit-equal to the plain version), then timed passes, and
+    with ``profile`` a profiler window over one more pass. Every launch count
+    is set to 0 before and read after; gemm_int8 must have launched 54 times
+    a pass, the other kernels not at all. Returns the counts."""
+    from repro_torch.kernels.gemm_int8 import ops
+    from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference
+
+    nodes = sum(row[-1] for row in RESNET50_GEMMS)
+    ops_per_image = sum(2 * m * n * k * c for _, m, n, k, _, _, c in RESNET50_GEMMS)
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    passes = 0
+    for batch in RESNET50_BATCHES:
+        # each node its own operands, as each layer of the network has its own
+        # weights: no node finds another's weights or activations in L2
+        layers = []
+        for name, m, n, k, relu, residual, count in RESNET50_GEMMS:
+            for j in range(count):
+                a, w, b, res = gemm_inputs(batch * n, m, k, seed=SEED + 1000 + len(layers),
+                                           residual=residual)
+                layers.append((f"{name} #{j}", a, w, b, res, relu))
+
+        def network():
+            return [ops.gemm_int8(a, w, b, shift=RESNET50_SHIFT, relu=relu, residual=res)
+                    for _, a, w, b, res, relu in layers]
+
+        outs = network()
+        passes += 1
+        for (name, a, w, b, res, relu), got in zip(layers, outs):
+            want = gemm_int8_reference(a, w, b, shift=RESNET50_SHIFT, relu=relu, residual=res)
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"resnet50 batch {batch} {name} {tuple(a.shape)} x "
+                                     f"{tuple(w.shape)}: kernel output differs from the "
+                                     f"plain version")
+        del outs, want
+        ms = cuda_ms(network, RESNET50_ITERS, warmup=1)
+        dev_ms = graph_ms(network, calls=1, replays=RESNET50_ITERS)
+        passes += 1 + RESNET50_ITERS + 2  # graph_ms: a warm pass and the captured one
+        gop = ops_per_image * batch / 1e9
+        n_bytes = sum(t.numel() * t.element_size() for node in layers for t in node[1:5]
+                      if t is not None)
+        report(f"resnet50 @256 batch {batch}: {nodes} GEMMs ({len(RESNET50_GEMMS)} shapes, "
+               f"each node its own operands, {n_bytes / 1e6:.1f} MB of inputs) bit-equal "
+               f"to the plain version; network {ms:.4f} ms launched from Python "
+               f"({gop / ms:.2f} TOPS, {batch / ms * 1e3:.1f} images/s), {dev_ms:.4f} ms "
+               f"replayed as a CUDA graph ({gop / dev_ms:.2f} TOPS, "
+               f"{batch / dev_ms * 1e3:.1f} images/s); {gop:.3f} int8 GOP")
+        if profile:
+            summ = profile_window(network, ms)
+            passes += 2
+            report(f"profile resnet50 batch {batch} network: {json.dumps(summ)}")
+        del layers
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    want = {name: (nodes * passes if name == "gemm_int8" else 0) for name in kernel_mods}
+    if launches != want:
+        raise AssertionError(f"resnet50 path launched {launches}, want {want} ({nodes} x "
+                             f"{passes} network passes)")
+    report(f"resnet50 launches on the path: {json.dumps(launches)} = gemm_int8 {nodes} x "
+           f"{passes} network passes")
+    return launches
+
+
+def time_gemm(gemm_kernel, hw, report) -> dict:
+    """Kernel, plain and library time of the GEMM of GEMM_TIMED, and its bound."""
+    from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference, requantize
+
+    name, batch = GEMM_TIMED
+    _, m, n, k, relu, residual, _ = next(r for r in RESNET50_GEMMS if r[0] == name)
+    M, N, K = batch * n, m, k
+    a, w, b, res = gemm_inputs(M, N, K, seed=SEED + 500, residual=residual)
+    kw = dict(shift=RESNET50_SHIFT, relu=relu, residual=res)
+
+    def library():  # one PyTorch call for the product, the same epilogue in torch ops
+        return requantize(torch._int_mm(a, w), b, **kw)
+
+    # the kernel's contract is w (K, N) row-major; cuBLASLt's int8 product
+    # prefers w column-major, so _int_mm is timed on that layout too (the
+    # layout change itself not timed)
+    w_col = w.t().contiguous().t()
+    if not torch.equal(library(), gemm_kernel.gemm_int8_cuda(a, w, b, **kw)):
+        raise AssertionError("gemm_int8: _int_mm + epilogue differs from the kernel")
+    if not torch.equal(torch._int_mm(a, w_col), torch._int_mm(a, w)):
+        raise AssertionError("gemm_int8: _int_mm on column-major w differs")
+    # the kernel is as short as a launch from Python: time each candidate as
+    # device time from a CUDA graph, and the kernel launched from Python too
+    def kernel():
+        return gemm_kernel.gemm_int8_cuda(a, w, b, **kw)
+
+    kernel_ms = graph_ms(kernel, 20)
+    plain_ms = graph_ms(lambda: gemm_int8_reference(a, w, b, **kw), 20)
+    library_ms = graph_ms(library, 20)
+    int_mm_ms = graph_ms(lambda: torch._int_mm(a, w), 20)
+    int_mm_col_ms = graph_ms(lambda: torch._int_mm(a, w_col), 20)
+    library_col_ms = graph_ms(lambda: requantize(torch._int_mm(a, w_col), b, **kw), 20)
+    kernel_ms2 = graph_ms(kernel, 20)
+    eager_ms = cuda_ms(kernel, 50)
+    n_ops = 2 * M * N * K
+    n_bytes = M * K + K * N + 4 * N + M * N + (M * N if residual else 0)
+    bound_s, bound_by = hw.bound_seconds(n_bytes, n_ops, hw.INT8_TENSOR_OPS)
+    report(f"timing gemm_int8 {name} batch {batch} (M={M} N={N} K={K}, relu {relu}), device "
+           f"time from CUDA graphs: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms "
+           f"({n_ops / kernel_ms / 1e9:.1f} TOPS), plain (float64 product) {plain_ms:.4f} ms, "
+           f"library (torch._int_mm + epilogue) {library_ms:.4f} ms, torch._int_mm alone "
+           f"{int_mm_ms:.4f} ms; with w column-major (cuBLASLt's preferred layout, not the "
+           f"kernel's contract) _int_mm + epilogue {library_col_ms:.4f} ms, _int_mm alone "
+           f"{int_mm_col_ms:.4f} ms; the kernel launched from Python {eager_ms:.4f} ms a call; bound "
+           f"{bound_s * 1e3:.4f} ms by {bound_by} ({n_bytes / 1e6:.2f} MB at "
+           f"{hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s; {n_ops / 1e9:.2f} G int8 ops at "
+           f"{hw.INT8_TENSOR_OPS / 1e12:.0f} TOPS)")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": library_ms, "timed": "graph"}
+
+
+def drive_pipeline(kernel_mods, report, profile=False) -> dict:
+    """The pipeline executor at full width on one card: PIPE_ARCH, random fp32
+    weights from SEED, PIPE_STAGES stages, PIPE_MICROBATCHES microbatches of
+    PIPE_MB x PIPE_LEN tokens, against the plain forward on the same tokens.
+    Every launch count is set to 0 just before the first pipeline call and
+    read after the last forward: flash attention must have launched once a
+    layer and microbatch in each pipeline call and once a layer in each
+    forward, the other kernels not at all. With ``profile``, a profiler
+    window over one more pipeline call. Returns the counts."""
+    from repro_torch import hw
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import pipeline as pp
+
+    cfg = get_config(PIPE_ARCH)
+    S, M, mb, s = PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, seed=SEED, dtype=torch.float32)
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"{PIPE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, untied head {not cfg.tie_embeddings}, window {cfg.window}; "
+          f"{n_params} params ({n_params / 1e9:.3f} B), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB fp32")
+    plan = pp.plan_pipeline(cfg, n_stages=S, microbatches=M, seq_len=s, microbatch_size=mb)
+    for pu in plan.programs:
+        pu.validate()
+    print(f"pipeline plan: {S} stages, boundaries {plan.boundaries}, {plan.layers_per_stage} "
+          f"layers a stage, {M} microbatches of {mb} x {s}; stage 1's LD program:")
+    print(plan.programs[1].ld.disassemble())
+    sparams = pp.stack_stage_params(cfg, params, plan)
+    fn = pp.make_pipeline_forward(cfg, plan)
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (M, mb, s)),
+                             device="cuda")
+    flat = tokens.reshape(M * mb, s)
+
+    def timed(f):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = f()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    out, pipe_ms = timed(lambda: fn(sparams, tokens))
+    counts = fn.counts
+    stage_ms = [sum(ms) / len(ms) for ms in fn.stage_ms]
+    want, fwd_ms = timed(lambda: tf.forward(cfg, params, {"tokens": flat})[0])
+    if out.shape != (M, mb, s, cfg.vocab_size) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"pipeline logits {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    got = out.reshape(M * mb, s, -1)
+    diff = (got - want).abs().max().item()
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not torch.allclose(got, want, rtol=PIPE_TOL, atol=PIPE_TOL):
+        raise AssertionError(f"pipeline vs forward: max |diff| {diff:.3e} beyond "
+                             f"rtol=atol={PIPE_TOL}")
+    del out, got
+    alone = tf.forward(cfg, params, {"tokens": flat[:1]})[0][0]
+    noise = (alone - want[0]).abs().max().item()
+    max_logit = want.abs().max().item()
+    del want, alone
+    out2, pipe_ms2 = timed(lambda: fn(sparams, tokens))
+    del out2
+    _, fwd_ms2 = timed(lambda: tf.forward(cfg, params, {"tokens": flat})[0])
+    forwards, pipes = 3, 2  # batched forward twice, the first prompt alone once
+    if profile:
+        summ = profile_window(lambda: fn(sparams, tokens), pipe_ms2)
+        pipes += 2
+        report(f"profile {PIPE_ARCH} pipeline call: {json.dumps(summ)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report(f"{PIPE_ARCH} pipeline {S} stages x {M} microbatches of {mb}x{s}: logits vs the "
+           f"plain forward on the same {M * mb}x{s} tokens max |diff| {diff:.3e} (rtol=atol="
+           f"{PIPE_TOL}), max |logit| {max_logit:.1f}, argmax equal at {top1:.6f} of positions; "
+           f"the first prompt's forward alone vs in the batch of {M * mb}: max |diff| "
+           f"{noise:.3e}")
+
+    want_counts = [{"WAIT_REQ": M * (i > 0), "SEND_ACK": (M + 2) * (i > 0),
+                    "WAIT_ACK": M * (i < S - 1), "SEND_REQ": M * (i < S - 1)} for i in range(S)]
+    if not counts == fn.counts == pp.program_sync_counts(plan) == want_counts:
+        raise AssertionError(f"token operations {counts} / {fn.counts}, the programs "
+                             f"prescribe {pp.program_sync_counts(plan)}")
+    report(f"{PIPE_ARCH} pipeline tokens by stage (CUDA events): {json.dumps(counts)} = the "
+           f"programs' (non-first stages {M} x (WAIT_REQ + SEND_ACK) + 2 prologue SEND_ACKs, "
+           f"non-last {M} x (WAIT_ACK + SEND_REQ))")
+    report(f"{PIPE_ARCH} wall: pipeline {pipe_ms:.3f} / {pipe_ms2:.3f} ms, plain forward "
+           f"{fwd_ms:.3f} / {fwd_ms2:.3f} ms ({M * mb * s} tokens), peak memory {peak_gb:.2f} "
+           f"GB; per stage and microbatch (events around the stage's Compute, first call) "
+           + ", ".join(f"stage {i} {ms:.3f} ms" for i, ms in enumerate(stage_ms))
+           + f"; analytic plan.stage_time_s {plan.stage_time_s * 1e3:.3f} ms (fp32 "
+           f"{hw.FP32_FLOPS / 1e12:.0f} TFLOP/s, {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    L = cfg.num_layers
+    want_l = {name: (L * (M * pipes + forwards) if name == "flash_attention" else 0)
+              for name in kernel_mods}
+    how = f"flash_attention {L} x ({M} microbatches x {pipes} pipeline calls + {forwards} forwards)"
+    if launches != want_l:
+        raise AssertionError(f"pipeline path launched {launches}, want {want_l} ({how})")
+    report(f"{PIPE_ARCH} launches on the pipeline path: {json.dumps(launches)} = {how}")
+    del params, sparams, fn
+    return launches
 
 
 def main() -> int:
@@ -605,6 +1002,7 @@ def main() -> int:
     from repro_torch.kernels import SOURCES, _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import mha_reference
+    from repro_torch.kernels.gemm_int8 import kernel as gemm_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_reference
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -636,14 +1034,20 @@ def main() -> int:
     fa_err = check_flash_attention(fa_kernel, mha_reference, report)
     wkv6_err = check_wkv6(wkv6_kernel, report)
     ssd_err = check_ssd_scan(ssd_kernel, report)
+    gemm_err = check_gemm_int8(gemm_kernel, report)
 
     # ---------------------------------------------------------- main paths --
-    kernel_mods = {"flash_attention": fa_kernel, "wkv6": wkv6_kernel, "ssd_scan": ssd_kernel}
+    kernel_mods = {"flash_attention": fa_kernel, "wkv6": wkv6_kernel, "ssd_scan": ssd_kernel,
+                   "gemm_int8": gemm_kernel}
     launches = {name: 0 for name in kernel_mods}
     for arch, per_prefill, per_decode in PATHS:
         path = drive_path(arch, kernel_mods, per_prefill, per_decode, report, args.profile)
         launches = {name: launches[name] + path[name] for name in kernel_mods}
         torch.cuda.empty_cache()  # the path's weights are gone; hand their memory back
+    for drive in (drive_resnet50, drive_pipeline):
+        path = drive(kernel_mods, report, args.profile)
+        launches = {name: launches[name] + path[name] for name in kernel_mods}
+        torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- timing --
     cfg = get_config(ARCH)
@@ -680,7 +1084,7 @@ def main() -> int:
                "replaces": "src/repro/kernels/rwkv6/kernel.py:57",
                "launches": launches["wkv6"], "max_abs_err": wkv6_err, "ms": wkv_ms,
                "plain_ms": wkv_plain_ms, "bound_ms": wbound_s * 1e3, "bound_by": wbound_by,
-               "library_ms": None}
+               "library_ms": None, "timed": "events"}
     del wargs
 
     H, P, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
@@ -703,10 +1107,15 @@ def main() -> int:
                "replaces": "src/repro/kernels/ssd_scan/kernel.py:78",
                "launches": launches["ssd_scan"], "max_abs_err": ssd_err, "ms": ssd_ms,
                "plain_ms": ssd_plain_ms, "bound_ms": sbound_s * 1e3, "bound_by": sbound_by,
-               "library_ms": None}
+               "library_ms": None, "timed": "events"}
+    gemm_row = {"name": "gemm_int8", "route": "cuda",
+                "source": "src/repro_torch/kernels/gemm_int8/csrc/gemm_int8.cu",
+                "replaces": "src/repro/kernels/gemm_int8/kernel.py:62",
+                "launches": launches["gemm_int8"], "max_abs_err": gemm_err,
+                **time_gemm(gemm_kernel, hw, report)}
     print(f"total: {time.time() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row]}))
+    print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,8 @@ API:
   forward(cfg, params, batch)                    -> (logits, aux)
   init_cache(cfg, batch, max_len, dtype, device) -> cache
   decode_step(cfg, params, cache, batch, pos)    -> (logits, cache)  [cache updated in place]
+  forward_layers(cfg, stack, lo, hi, x)          -> x  [a pipeline stage's layers]
+  final_logits(cfg, params, x)                   -> logits
 """
 from __future__ import annotations
 
@@ -173,7 +175,18 @@ def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict,
     return x + mlp(p["mlp"], h, cfg.mlp, cfg.act)
 
 
-def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def forward_layers(cfg: ArchConfig, stack: dict, lo: int, hi: int,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Layers ``lo`` to ``hi`` of a uniform dense stack (params with a leading
+    layer axis) on ``x``: the body of a pipeline stage."""
+    local = cfg.attn == "swa"
+    for i in range(lo, hi):
+        x = _layer_forward(cfg, "dense", local, _layer(stack, i), x)
+    return x
+
+
+def final_logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head: hidden states -> logits."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(head, x, tied=cfg.tie_embeddings)
@@ -189,7 +202,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
         for i in range(blk.n):
             x = _layer_forward(cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i),
                                x)
-    logits = _unembed(cfg, params, x)
+    logits = final_logits(cfg, params, x)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
 
@@ -227,7 +240,7 @@ def decode_step(cfg: ArchConfig, params: dict, caches: list, batch: dict, pos: i
         for i in range(blk.n):
             x = _layer_decode(cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i),
                               x, _layer(cache, i), pos)
-    return _unembed(cfg, params, x), caches
+    return final_logits(cfg, params, x), caches
 
 
 def _layer_decode(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor,

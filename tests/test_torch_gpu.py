@@ -1,15 +1,23 @@
-"""The CUDA kernels (flash attention, wkv6, the SSD scan) against their plain
-PyTorch versions, on the card. This file imports no JAX (the machine with the card
-has none); every test here needs a CUDA device and skips without one:
+"""The CUDA kernels (flash attention, wkv6, the SSD scan, the INT8 PU GEMM)
+against their plain PyTorch versions, and the pipeline executor on CUDA
+streams against the plain forward, on the card. This file imports no JAX (the
+machine with the card has none); every test here needs a CUDA device and
+skips without one:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.kernels.gemm_int8 import kernel as gemm_kernel  # noqa: E402
+from repro_torch.kernels.gemm_int8 import ops as gemm_ops  # noqa: E402
+from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mha_reference  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
@@ -17,6 +25,8 @@ from repro_torch.kernels.rwkv6.ref import wkv6_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.runtime import pipeline as pp  # noqa: E402
 
 # (b, s, H, G, hd, window, dtype, tol): the shapes and tolerances of
 # tests/test_kernels.py:28-61, head dims 112 (zamba2-7b's shared blocks, MHA)
@@ -214,3 +224,106 @@ def test_ssd_kernel_tile_invariance(cuda):
     torch.cuda.synchronize()
     for y, h in outs[1:]:
         assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])
+
+
+# -------------------------------------------------------------- gemm int8 --
+def _gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
+    r = np.random.default_rng(seed)
+    a = r.integers(-128, 128, (m, k)).astype(np.int8)
+    w = r.integers(-128, 128, (k, n)).astype(np.int8)
+    b = r.integers(-bias_range, bias_range, n).astype(np.int32)
+    res = r.integers(-128, 128, (m, n)).astype(np.int8) if residual else None
+    return [None if x is None else torch.from_numpy(x).cuda() for x in (a, w, b, res)]
+
+
+# (m, n, k, shift, relu, residual): TestGemmInt8's shapes
+# (tests/test_kernels.py:93-134) with their epilogues, and three of
+# ResNet-50's GEMMs at batch 1 as chip_smoke.py maps them (M = positions,
+# N = output channels): conv1 (ragged K = 147), layer3's FusedConvAdd(ReLU)
+# and fc (M = 1, N = 1000). Integer sums are exact in any order: bit-equal.
+GEMM_CASES = [
+    (64, 64, 64, 7, False, False),
+    (128, 128, 256, 7, False, False),
+    (100, 72, 300, 7, False, False),
+    (64, 64, 128, 7, True, True),
+    (48, 32, 96, 0, False, False),
+    (48, 32, 96, 4, True, False),
+    (16, 32, 64, 8, True, False),
+    (16384, 64, 147, 7, True, False),
+    (256, 1024, 256, 7, True, True),
+    (1, 1000, 2048, 7, False, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,shift,relu,residual", GEMM_CASES)
+def test_gemm_int8_kernel_matches_plain(cuda, m, n, k, shift, relu, residual):
+    a, w, b, res = _gemm_inputs(m, n, k, seed=m + n + k, residual=residual)
+    before = gemm_kernel.launches
+    out = gemm_ops.gemm_int8(a, w, b, shift=shift, relu=relu, residual=res)
+    torch.cuda.synchronize()
+    assert gemm_kernel.launches == before + 1
+    want = gemm_int8_reference(a, w, b, shift=shift, relu=relu, residual=res)
+    assert out.dtype == torch.int8 and torch.equal(out, want)
+    cpu = gemm_int8_reference(*(x.cpu() for x in (a, w, b)), shift=shift, relu=relu,
+                              residual=None if res is None else res.cpu())
+    assert torch.equal(want.cpu(), cpu)  # float64 on the card = int32 on the CPU
+
+
+@pytest.mark.gpu
+def test_gemm_int8_saturates_and_shifts_negatives(cuda):
+    a = torch.full((32, 512), 127, dtype=torch.int8, device="cuda")
+    w = torch.full((512, 32), 127, dtype=torch.int8, device="cuda")
+    out = gemm_ops.gemm_int8(a, w, shift=0)
+    assert int(out.min()) == int(out.max()) == 127
+    assert int(gemm_ops.gemm_int8(a, -w, shift=0).max()) == -128
+    a = torch.full((16, 32), -3, dtype=torch.int8, device="cuda")
+    w = torch.full((32, 16), 5, dtype=torch.int8, device="cuda")
+    b = (torch.arange(-8, 8, dtype=torch.int32) * 37).cuda()
+    for shift in (1, 3, 5, 7):
+        got = gemm_ops.gemm_int8(a, w, b, shift=shift)
+        assert torch.equal(got, gemm_int8_reference(a, w, b, shift=shift))
+        assert bool((got < 0).all())
+
+
+@pytest.mark.gpu
+def test_gemm_int8_unaligned_rows_take_the_byte_loads(cuda):
+    """Contiguous operands one byte off their allocation: the kernel's
+    16-byte and 4-byte loads would be misaligned, so it takes its byte loads."""
+    m, n, k = 96, 64, 128
+    a0, w0, b, res0 = _gemm_inputs(m, n, k, seed=7, residual=True)
+    a = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")[1:].view(m, k).copy_(a0)
+    w = torch.empty(k * n + 1, dtype=torch.int8, device="cuda")[1:].view(k, n).copy_(w0)
+    out = gemm_kernel.gemm_int8_cuda(a, w, b, res0, shift=7, relu=True)
+    assert torch.equal(out, gemm_int8_reference(a0, w0, b, shift=7, relu=True, residual=res0))
+
+
+@pytest.mark.gpu
+def test_gemm_int8_refuses_non_contiguous(cuda):
+    a, w, b, _ = _gemm_inputs(64, 64, 64, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_kernel.gemm_int8_cuda(a, w.t(), b, shift=7, relu=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_kernel.gemm_int8_cuda(a.t(), w, b, shift=7, relu=False)
+
+
+# ------------------------------------------------------ pipeline executor --
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,S", [(4, 4), (5, 4)])
+def test_pipeline_on_streams_matches_forward(cuda, L, S):
+    """Reduced h2o-danube-3-4b (window 64) at s = 96, fp32: the executor on
+    one CUDA stream a stage, its tokens CUDA events, against the plain
+    forward at 2e-3; the token counts are the programs'."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("h2o-danube-3-4b").reduced(), num_layers=L)
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32)
+    M, mb, s = 3, 2, 96
+    toks = torch.randint(0, cfg.vocab_size, (M, mb, s), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    plan = pp.plan_pipeline(cfg, n_stages=S, microbatches=M, seq_len=s, microbatch_size=mb)
+    fn = pp.make_pipeline_forward(cfg, plan)
+    out = fn(pp.stack_stage_params(cfg, params, plan), toks)
+    want, _ = tf.forward(cfg, params, {"tokens": toks.reshape(M * mb, s)})
+    torch.testing.assert_close(out.reshape(M * mb, s, -1), want, rtol=2e-3, atol=2e-3)
+    assert fn.counts == pp.program_sync_counts(plan)
+    assert [len(ms) for ms in fn.stage_ms] == [M] * S

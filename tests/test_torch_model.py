@@ -45,6 +45,22 @@ def test_forward_matches_jax(arch):
     assert float(aux["moe_aux"]) == 0.0
 
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-3-4b"])
+def test_forward_layers_in_parts_is_forward(arch):
+    """A uniform dense stack run in two ranges of ``forward_layers`` and then
+    ``final_logits`` (a pipeline's stage bodies) gives ``forward``'s logits
+    bit for bit."""
+    cfg = get_config(arch).reduced()
+    params = bridge.params_from_numpy(numpy_params(jget(arch).reduced(), seed=2), device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 80, seed=4)).long()
+    want, _ = tf.forward(cfg, params, {"tokens": toks})
+    stack, L = params["blocks"][0], cfg.num_layers
+    x = tf.embed(params["embed"], toks)
+    x = tf.forward_layers(cfg, stack, 0, L // 2, x)
+    x = tf.forward_layers(cfg, stack, L // 2, L, x)
+    assert torch.equal(tf.final_logits(cfg, params, x), want)
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_decode_matches_forward(arch):
     """Token-by-token decode reproduces the full-sequence logits; 80 steps
