@@ -155,6 +155,58 @@ PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN = 4, 4, 1, 4608
 PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
 
 
+def _demangle(names: list[str]) -> dict[str, str]:
+    """Mangled kernel names -> ``name<args>`` (c++filt where there is one)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    short = (d.replace("(anonymous namespace)::", "").split("(")[0] for d in out)
+    return {n: d.removeprefix("void ") for n, d in zip(names, short)}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's registers and spills from nvcc's -Xptxas -v output."""
+    rows, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            rows[fn] = ["", ""]
+        elif fn and "spill stores" in ln:
+            rows[fn][1] = ln.strip()
+        elif fn and "Used" in ln:
+            rows[fn][0] = ln.split("Used", 1)[1].strip()
+    names = _demangle(list(rows))
+    return {names[fn]: tuple(v) for fn, v in rows.items()}
+
+
+def sass_mma_counts(lib: Path) -> dict:
+    """The tensor-core MMA instructions of each kernel in a built library, by
+    opcode, from ``cuobjdump -sass`` ({} where the toolkit has none)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = defaultdict(int)
+        m = re.search(r"\b([HI]G?MMA\.[\w.]+)", ln)
+        if fn and m:
+            counts[fn][m.group(1)] += 1
+    names = _demangle(list(counts))
+    return {names[fn]: ", ".join(f"{op} x {n}" for op, n in sorted(c.items()))
+            for fn, c in counts.items() if c}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -512,6 +564,17 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         (PREFILL_BATCH, PREFILL_LEN, 32, 32, 112, None, torch.float32, 1e-4,
          "zamba2 prefill fp32"),
         (PIPE_MB, PIPE_LEN, 32, 8, 120, 4096, torch.float32, 1e-4, "h2o pipeline fp32"),
+        # the kernel's tiles (256 q rows and 32 kv rows; 64 and 16 at hd 256):
+        # s a multiple of neither, windows whose left edge falls mid-tile at
+        # hd 112 and 120, hd 16 and 256 at ragged s, bf16 at hd 112 ragged
+        (1, 161, 4, 2, 64, None, torch.float32, 2e-5, "ragged s=161"),
+        (2, 200, 8, 8, 128, None, torch.float32, 2e-5, "hd 128 ragged s=200"),
+        (1, 300, 4, 4, 112, 77, torch.float32, 2e-5, "hd 112 window 77 mid-tile"),
+        (1, 333, 8, 2, 120, 45, torch.float32, 2e-5, "hd 120 window 45 mid-tile"),
+        (1, 150, 4, 2, 16, None, torch.float32, 2e-5, "hd 16 ragged s=150"),
+        (1, 77, 4, 2, 256, None, torch.float32, 2e-5, "hd 256 ragged s=77"),
+        (1, 99, 2, 1, 256, 20, torch.float32, 2e-5, "hd 256 window 20 ragged"),
+        (1, 150, 4, 4, 112, None, torch.bfloat16, 3e-2, "hd 112 bf16 ragged"),
     ]
     slice_err = 0.0
     for i, (b, s, H, G, hd, window, dtype, tol, label) in enumerate(cases):
@@ -535,11 +598,13 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
                f"window={window} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol}){extra}")
         if label.endswith(("prefill fp32", "pipeline fp32")):
             slice_err = max(slice_err, err)
-    q, k, v = qkv(1, 64, 2, 2, 32, seed=SEED, dtype=torch.float32, ones_v=True)
-    out = fa_kernel.flash_attention_cuda(q, k, v)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, torch.ones_like(out), rtol=1e-5, atol=1e-5)
-    report("kernel check flash_attention rows sum to one (v = 1): ok")
+    for s, hd, window in ((64, 32, None), (130, 120, None), (130, 120, 50)):
+        q, k, v = qkv(1, s, 2, 2, hd, seed=SEED, dtype=torch.float32, ones_v=True)
+        out = fa_kernel.flash_attention_cuda(q, k, v, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, torch.ones_like(out), rtol=1e-5, atol=1e-5)
+    report("kernel check flash_attention rows sum to one (v = 1) at hd 32 and 120, window "
+           "50: ok")
     return slice_err
 
 
@@ -660,27 +725,63 @@ def check_ssd_scan(ssd_kernel, report) -> float:
     return prefill_err
 
 
-def time_flash(fa_kernel, mha_reference, hw, b, s, H, G, hd, report) -> dict:
-    """Kernel, plain and SDPA time of causal fp32 attention at one shape,
-    and its bound."""
+def time_flash(fa_kernel, hw, label, b, s, H, G, hd, window, report) -> dict:
+    """Kernel, plain and SDPA times of causal fp32 attention at one shape,
+    and its bounds. SDPA is timed twice: with ``enable_gqa`` on the (b, G)
+    k/v, and on k/v expanded to H heads beforehand; the window, where there
+    is one, as a boolean mask built beforehand. The faster is ``library_ms``.
+    ``bound_ms`` is the kernel's own route (3 TF32 tensor-core products per
+    product); ``bound_fp32_cuda_ms`` the fp32 CUDA-core bound, kept beside it
+    so that times of the kernel's earlier CUDA-core version stay comparable."""
+    from repro_torch.kernels.flash_attention.ref import kept_pairs, mha_reference, repeat_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = qkv(b, s, H, G, hd, seed=SEED, dtype=torch.float32)
-    kernel_ms = cuda_ms(lambda: fa_kernel.flash_attention_cuda(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: mha_reference(q, k, v), 5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    kernel_ms2 = cuda_ms(lambda: fa_kernel.flash_attention_cuda(q, k, v), 20)
-    pairs = s * (s + 1) // 2  # causal: the (row, col) pairs this run needs
+    ke, ve = (repeat_kv(x, H // G).transpose(1, 2).contiguous() for x in (k, v))
+    if window is None:
+        mask_kw = {"is_causal": True}
+    else:
+        i = torch.arange(s, device="cuda")
+        mask_kw = {"attn_mask": (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)}
+
+    def kernel():
+        return fa_kernel.flash_attention_cuda(q, k, v, causal=True, window=window)
+
+    want = mha_reference(q, k, v, causal=True, window=window)
+    for name, out in (("enable_gqa", sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)),
+                      ("expanded", sdpa(qt, ke, ve, **mask_kw))):
+        err = (out.transpose(1, 2) - want).abs().max().item()
+        if err > 1e-4:
+            raise AssertionError(f"SDPA ({name}) at the {label} shape is off the plain "
+                                 f"version by {err:.3e}")
+    del want, out
+    iters = 20 if s <= 1024 else 5
+    kernel_ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(lambda: mha_reference(q, k, v, causal=True, window=window), 3)
+    gqa_ms = cuda_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True, **mask_kw), iters)
+    exp_ms = cuda_ms(lambda: sdpa(qt, ke, ve, **mask_kw), iters)
+    kernel_ms2 = cuda_ms(kernel, iters)
+    library, library_ms = min((("sdpa_enable_gqa", gqa_ms), ("sdpa_expanded", exp_ms)),
+                              key=lambda x: x[1])
+    pairs = kept_pairs(s, s, causal=True, window=window)  # the (row, col) pairs this run needs
     flops = 4 * hd * b * H * pairs
     n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * 4
-    bound_s, bound_by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
-    report(f"timing flash_attention fp32 b={b} s={s} H={H} G={G} hd={hd} causal: kernel "
-           f"{kernel_ms:.4f} / {kernel_ms2:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, "
-           f"enable_gqa) {library_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms by {bound_by} "
-           f"({flops / 1e9:.2f} GFLOP at fp32 CUDA-core peak {hw.FP32_FLOPS / 1e12:.0f} "
-           f"TFLOP/s; {n_bytes / 1e6:.1f} MB at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms, "timed": "events"}
+    bound_s, bound_by = hw.bound_seconds(n_bytes, 3 * flops, hw.TF32_TENSOR_FLOPS)
+    fp32_s, _ = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
+    report(f"timing flash_attention {label} fp32 b={b} s={s} H={H} G={G} hd={hd} causal "
+           f"window={window}: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms "
+           f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library SDPA "
+           f"enable_gqa {gqa_ms:.4f} ms, SDPA on k/v expanded to {H} heads {exp_ms:.4f} ms; "
+           f"bound {bound_s * 1e3:.4f} ms by {bound_by} (3 x {flops / 1e9:.2f} GFLOP at TF32 "
+           f"tensor-core peak {hw.TF32_TENSOR_FLOPS / 1e12:.0f} TFLOP/s; {n_bytes / 1e6:.1f} "
+           f"MB at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s), fp32 CUDA-core bound "
+           f"{fp32_s * 1e3:.4f} ms ({hw.FP32_FLOPS / 1e12:.0f} TFLOP/s)")
+    return {"shape": label, "b": b, "s": s, "H": H, "G": G, "hd": hd, "window": window,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "bound_fp32_cuda_ms": fp32_s * 1e3, "library_ms": library_ms,
+            "library": library, "library_enable_gqa_ms": gqa_ms, "library_expanded_ms": exp_ms,
+            "timed": "events"}
 
 
 def gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
@@ -1024,10 +1125,12 @@ def main() -> int:
     t0 = time.time()
     built = _build.build(SOURCES)
     for b in built.values():
-        summary = [ln for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"built {b.name} -> {b.path.name}" + ("" if b.log else " (cached)"))
-        for ln in summary:
-            print(f"  ptxas: {ln.strip()}")
+        mma = sass_mma_counts(b.path)
+        for fn, (regs, spill) in ptxas_summary(b.log).items():
+            print(f"  {fn}: {regs}; {spill}; SASS {mma.pop(fn, 'no tensor-core MMA')}")
+        for fn, counts in mma.items():
+            print(f"  {fn}: SASS {counts}")
     print(f"build: {time.time() - t0:.1f} s")
 
     # --------------------------------------------------------- kernel check --
@@ -1050,17 +1153,26 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- timing --
-    cfg = get_config(ARCH)
     b, s = PREFILL_BATCH, PREFILL_LEN
-    fa_times = time_flash(fa_kernel, mha_reference, hw, b, s, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.resolved_head_dim, report)
     zcfg = get_config(ZAMBA_ARCH)
-    time_flash(fa_kernel, mha_reference, hw, b, s, zcfg.num_heads, zcfg.num_kv_heads,
-               zcfg.resolved_head_dim, report)
+    fa_shapes = []
+    for label, arch, bb, ss in ((ARCH, ARCH, b, s), (ZAMBA_ARCH, ZAMBA_ARCH, b, s),
+                                (f"{PIPE_ARCH} pipeline", PIPE_ARCH, PIPE_MB, PIPE_LEN)):
+        c = get_config(arch)
+        window = c.window if c.attn == "swa" else None  # as the model's plan sets it
+        fa_shapes.append(time_flash(fa_kernel, hw, label, bb, ss, c.num_heads, c.num_kv_heads,
+                                    c.resolved_head_dim, window, report))
+        torch.cuda.empty_cache()
+    # the row's own numbers are the qwen3-0.6b shape's (as in earlier rows);
+    # "shapes" holds every main-path shape
     fa_row = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-              "launches": launches["flash_attention"], "max_abs_err": fa_err, **fa_times}
+              "launches": launches["flash_attention"], "max_abs_err": fa_err,
+              **{key: fa_shapes[0][key] for key in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_cuda_ms",
+                  "library_ms", "library", "timed")},
+              "shapes": fa_shapes}
 
     rcfg = get_config(RWKV_ARCH)
     P = rcfg.ssm_head_dim

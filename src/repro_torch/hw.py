@@ -8,6 +8,7 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12  # HBM3, 80 GB
 BF16_TENSOR_FLOPS = 989e12  # bf16/fp16 tensor cores, dense
+TF32_TENSOR_FLOPS = 495e12  # TF32 tensor cores, dense
 FP32_FLOPS = 67e12  # fp32 on CUDA cores (outside the tensor cores)
 INT8_TENSOR_OPS = 1979e12  # int8 tensor cores, dense
 

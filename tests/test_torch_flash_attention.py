@@ -1,7 +1,9 @@
 """The port's flash attention: its plain version against the JAX kernel (in
 interpret mode) and the JAX oracle at the shapes and tolerances of
-tests/test_kernels.py, the dispatch by device, and (on a card only) the CUDA
-kernel against the plain version (tests/test_torch_gpu.py)."""
+tests/test_kernels.py, the CUDA kernel's numerical route (3xTF32, emulated
+on the CPU) against the same oracle, the dispatch by device, the bounds
+chip_smoke.py reports, and (on a card only) the CUDA kernel against the
+plain version (tests/test_torch_gpu.py)."""
 import numpy as np
 import pytest
 
@@ -13,7 +15,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
 from repro.kernels.flash_attention.ref import mha_reference as jax_mha  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import mha_reference, repeat_kv  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    kept_pairs,
+    mha_reference,
+    mha_tf32,
+    repeat_kv,
+    split_tf32,
+    tf32_round,
+)
 
 # (b, s, H, G, hd, window): tests/test_kernels.py:28-50
 SHAPES = [
@@ -92,16 +101,106 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_bound_at_prefill_shape():
-    """The bound chip_smoke.py reports for the qwen3-0.6b prefill attention:
-    17.2 GFLOP of causal work over the fp32 CUDA-core peak, above the
-    0.03 ms the 100.7 MB of q/k/v/o take at the HBM rate."""
+    """The bounds chip_smoke.py reports for the qwen3-0.6b prefill attention:
+    17.2 GFLOP of causal work over the fp32 CUDA-core peak (the bound of the
+    kernel's earlier CUDA-core version) and, as the kernel computes it,
+    3 x 17.2 GFLOP over the TF32
+    tensor-core peak; both above the 0.03 ms the 100.7 MB of q/k/v/o take at
+    the HBM rate."""
     from repro_torch import hw
 
     b, s, H, G, hd = 4, 1024, 16, 8, 128
-    flops = 4 * hd * b * H * s * (s + 1) // 2
+    flops = 4 * hd * b * H * kept_pairs(s, s)
+    assert flops == 4 * hd * b * H * s * (s + 1) // 2
     n_bytes = 4 * (2 * b * s * H * hd + 2 * b * s * G * hd)
     t, by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
     assert by == "operations"
     assert abs(t - 2.5667e-4) < 1e-8
+    t, by = hw.bound_seconds(n_bytes, 3 * flops, hw.TF32_TENSOR_FLOPS)
+    assert by == "operations" and abs(t - 1.0422e-4) < 1e-8
     t_bytes, by = hw.bound_seconds(n_bytes, 0, hw.FP32_FLOPS)
     assert by == "bytes" and abs(t_bytes - 3.005e-5) < 1e-8
+
+
+# (b, s, H, G, hd, window, GFLOP, 3xTF32 bound ms): the three shapes the
+# main paths run the kernel at (qwen3-0.6b prefill, zamba2-7b prefill, the
+# h2o-danube-3-4b pipeline's microbatch)
+MAIN_PATH_SHAPES = [
+    (4, 1024, 16, 8, 128, None, 17.20, 0.1042),
+    (4, 1024, 32, 32, 112, None, 30.09, 0.1824),
+    (1, 4608, 32, 8, 120, 4096, 161.09, 0.9763),
+]
+
+
+@pytest.mark.parametrize("b,s,H,G,hd,window,gflop,bound_ms", MAIN_PATH_SHAPES)
+def test_tf32_bound_at_main_path_shapes(b, s, H, G, hd, window, gflop, bound_ms):
+    """3 x the masked pairs' operations over the TF32 tensor-core peak: the
+    kernel's bound at each shape the main paths launch it at."""
+    from repro_torch import hw
+
+    flops = 4 * hd * b * H * kept_pairs(s, s, causal=True, window=window)
+    assert round(flops / 1e9, 2) == gflop
+    n_bytes = 4 * (2 * b * s * H * hd + 2 * b * s * G * hd)
+    t, by = hw.bound_seconds(n_bytes, 3 * flops, hw.TF32_TENSOR_FLOPS)
+    assert by == "operations" and round(t * 1e3, 4) == bound_ms
+
+
+@pytest.mark.parametrize("s,t,causal,window,want", [
+    (4608, 4608, True, 4096, 4096 * 4097 // 2 + 512 * 4096),  # 10,487,808
+    (1024, 1024, True, None, 1024 * 1025 // 2),
+    (5, 7, False, None, 35),
+    (6, 6, True, 2, 1 + 2 * 5),
+    (6, 6, False, 2, 6 + 6 + 5 + 4 + 3 + 2),  # cols row-1 .. 5
+    (8, 3, True, None, 1 + 2 + 3 * 6),
+])
+def test_kept_pairs(s, t, causal, window, want):
+    assert kept_pairs(s, t, causal=causal, window=window) == want
+    qi, kj = np.arange(s)[:, None], np.arange(t)[None, :]
+    mask = np.ones((s, t), bool)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    assert int(mask.sum()) == want
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest on 10 mantissa bits, ties away from zero (cvt.rna),
+    and big + small (small truncated to TF32) recovers fp32 to 2^-21."""
+    ulp = 2.0 ** -10  # a TF32 ulp at 1
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + 3 * ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      3.0 * 2 ** -20, -0.0])
+    want = torch.tensor([1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0, 3.0 * 2 ** -20, -0.0])
+    assert torch.equal(tf32_round(x), want)
+    r = np.random.default_rng(0)
+    y = torch.from_numpy(r.standard_normal(4096).astype(np.float32))
+    big, small = split_tf32(y)
+    assert torch.equal(tf32_round(big), big) and torch.equal(tf32_round(small), small)
+    assert ((big - y).abs() <= y.abs() * 2.0 ** -11).all()
+    assert ((big + small - y).abs() <= y.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("b,s,H,G,hd,window", SHAPES)
+def test_3xtf32_route_matches_jax(b, s, H, G, hd, window):
+    """The kernel's products as 3xTF32 hold the JAX kernel (interpret mode)
+    and oracle to the plain version's tolerance, 2e-5."""
+    q, k, v = _qkv(b, s, H, G, hd, seed=s * H + hd + (window or 0))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_kernel = np.asarray(flash_attention_tpu(jq, jk, jv, causal=True, window=window,
+                                                 block_q=32, block_k=32, interpret=True))
+    want_ref = np.asarray(jax_mha(jq, jk, jv, causal=True, window=window))
+    got = mha_tf32(*map(torch.from_numpy, (q, k, v)), causal=True, window=window).numpy()
+    np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, want_ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,H,G,hd,window", SHAPES)
+def test_plain_tf32_misses_parity(b, s, H, G, hd, window):
+    """Why the kernel splits: one TF32 product per product, at the same
+    inputs, is off the JAX oracle by more than 2e-5."""
+    q, k, v = _qkv(b, s, H, G, hd, seed=s * H + hd + (window or 0))
+    want = np.asarray(jax_mha(*map(jnp.asarray, (q, k, v)), causal=True, window=window))
+    got = mha_tf32(*map(torch.from_numpy, (q, k, v)), causal=True, window=window,
+                   split=False).numpy()
+    err = np.abs(got - want) - 2e-5 * np.abs(want)
+    assert err.max() > 2e-5

@@ -45,6 +45,17 @@ CASES = [
     (1, 128, 4, 2, 32, 100, torch.float32, 2e-5),
     (1, 64, 4, 2, 32, None, torch.bfloat16, 3e-2),
     (4, 1024, 16, 8, 128, None, torch.float32, 1e-4),
+    # the kernel's tiles (256 q rows, 32 kv rows; 64 and 16 at hd 256): s
+    # not a multiple of either, windows whose left edge falls mid-tile at hd
+    # 112 and 120, hd 16 and 256 at ragged s
+    (1, 161, 4, 2, 64, None, torch.float32, 2e-5),
+    (2, 200, 8, 8, 128, None, torch.float32, 2e-5),
+    (1, 300, 4, 4, 112, 77, torch.float32, 2e-5),
+    (1, 333, 8, 2, 120, 45, torch.float32, 2e-5),
+    (1, 150, 4, 2, 16, None, torch.float32, 2e-5),
+    (1, 77, 4, 2, 256, None, torch.float32, 2e-5),
+    (1, 99, 2, 1, 256, 20, torch.float32, 2e-5),
+    (1, 150, 4, 4, 112, None, torch.bfloat16, 3e-2),
 ]
 
 
@@ -71,6 +82,32 @@ def test_cuda_kernel_matches_plain(cuda, b, s, H, G, hd, window, dtype, tol):
     assert kernel.launches == before + 1
     ref = mha_reference(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,hd,window", [(64, 32, None), (150, 112, None), (130, 120, 64)])
+def test_cuda_kernel_bf16_within_twice_plain_error(cuda, s, hd, window):
+    """bf16 in, fp32 math: the kernel's error against fp32 math on the same
+    bf16 inputs is at most twice the plain bf16 version's."""
+    q, k, v = _qkv(1, s, 4, 2, hd, seed=s + hd + 1, dtype=torch.bfloat16)
+    out = kernel.flash_attention_cuda(q, k, v, causal=True, window=window)
+    ref = mha_reference(q, k, v, causal=True, window=window)
+    exact = mha_reference(q.float(), k.float(), v.float(), causal=True, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    k_err = (out.float() - exact).abs().max().item()
+    p_err = (ref.float() - exact).abs().max().item()
+    assert k_err <= 2 * p_err, (k_err, p_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,window", [(32, None), (120, None), (120, 50)])
+def test_cuda_kernel_rows_sum_to_one(cuda, hd, window):
+    q, k, _ = _qkv(1, 130, 4, 2, hd, seed=hd, dtype=torch.float32)
+    v = torch.ones_like(k)
+    out = kernel.flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, torch.ones_like(out), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
