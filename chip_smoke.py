@@ -12,7 +12,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (flash attention, head dims 112 and 120 included; wkv6, also against its
    tile size and with the state updated in place; the SSD scan, y and final
    state, also against the chunked plain version and its tile size; the INT8
-   GEMM bit for bit at the TestGemmInt8 inputs);
+   GEMM bit for bit, w row-major and column-major, at the TestGemmInt8
+   inputs and at few-block long-K shapes that split K, and the int32 wrap
+   at K = 2^17);
 3. three main paths at full width, fp32, random weights from a seed, one
    after the other (each one's weights are freed before the next):
    qwen3-0.6b (28 layers, the flash-attention kernel), rwkv6-7b (32 layers,
@@ -29,8 +31,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
       windows over one prefill and over one-lane decode steps;
 4. the paper's INT8 PU GEMM on ResNet-50's own GEMMs: the 54 GEMM nodes of
    the network at 256x256 (22 distinct shapes, ``RESNET50_GEMMS``), at batch
-   1 and 16, each node with its own operands, each output bit-equal to the
-   plain version, the network timed;
+   1 and 16, each node with its own operands and its w stored column-major,
+   each output bit-equal to the plain version, the network timed;
 5. the pipeline executor: h2o-danube-3-4b at full width (24 layers, sliding
    window 4096) in 4 stages on one CUDA stream each, the stage programs'
    tokens as CUDA events, 4 microbatches of 1 x 4608 tokens (beyond the
@@ -39,7 +41,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 6. timing: each kernel, its plain version and the PyTorch library call (where
    one exists) at its main-path shape, beside the card's bound; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
-   launches from Python, or ``graph``, device time from a CUDA graph).
+   launches from Python, or ``graph``, device time from a CUDA graph); and
+   the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch.
 
 Every launch count is set to 0 just before a path's first call and read just
 after its last: each of the path's kernels must have launched its expected
@@ -798,9 +801,15 @@ def gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
             ints((m, n), -128, 128, torch.int8) if residual else None)
 
 
+def col_major(w):
+    """The same (K, N) matrix with K contiguous: the layout of the K-major
+    kernel, and of a PU's weights loaded once."""
+    return w.t().contiguous().t()
+
+
 def check_gemm_int8(gemm_kernel, report) -> int:
-    """The INT8 GEMM kernel against its plain version, bit for bit; returns the
-    largest |difference| (0)."""
+    """Both INT8 GEMM kernels (w row-major and column-major) against the plain
+    version, bit for bit; returns the largest |difference| (0)."""
     from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference
 
     x = torch.ones((2, 2), dtype=torch.int32, device="cuda")
@@ -811,41 +820,74 @@ def check_gemm_int8(gemm_kernel, report) -> int:
         int_mm = f"refuses int32 ({str(e).splitlines()[0][:80]})"
     report(f"torch.matmul on CUDA {int_mm}: the plain gemm_int8 takes its product in float64")
 
+    sms = gemm_kernel.sm_count(torch.cuda.current_device())
     # (m, n, k, shift, relu, residual, bias range, label): the TestGemmInt8
     # inputs, tests/test_kernels.py:93-134, the sweep at every draw's shift
-    # and ReLU
+    # and ReLU; then few-block long-K shapes on which the column-major kernel
+    # splits K (ResNet-50's layer3 and layer4 3x3 convs and fc at batch 1)
     cases = [(64, 64, 64, 7, False, False, 1000, "64x64x64"),
              (128, 128, 256, 7, False, False, 1000, "128x128x256"),
              (100, 72, 300, 7, False, False, 1000, "100x72x300 ragged"),
              (64, 64, 128, 7, True, True, 1, "residual + ReLU")]
     cases += [(m, 32, k, shift, relu, False, 64, f"sweep shift {shift} relu {relu}")
               for m, k in ((16, 64), (48, 96)) for shift in (0, 4, 8) for relu in (False, True)]
-    worst = 0
+    cases += [(256, 256, 2304, 7, True, False, 1000, "layer3.0.conv2 batch 1"),
+              (64, 512, 4608, 7, True, True, 1000, "layer4.0.conv2 batch 1 + residual"),
+              (1, 1000, 2048, 7, False, False, 1000, "fc batch 1")]
+    worst, split = 0, []
     for i, (m, n, k, shift, relu, residual, br, label) in enumerate(cases):
+        splits = gemm_kernel.split_k(m, n, k, sms)
         a, w, b, res = gemm_inputs(m, n, k, seed=SEED + 300 + i, residual=residual,
                                    bias_range=br)
-        got = gemm_kernel.gemm_int8_cuda(a, w, b, res, shift=shift, relu=relu)
         want = gemm_int8_reference(a, w, b, shift=shift, relu=relu, residual=res)
-        err = int((got.int() - want.int()).abs().max())
-        worst = max(worst, err)
-        if err:
-            raise AssertionError(f"gemm_int8 {label}: kernel differs from the plain version "
-                                 f"by up to {err}")
+        for layout, ww in (("row-major", w), ("column-major", col_major(w))):
+            got = gemm_kernel.gemm_int8_cuda(a, ww, b, res, shift=shift, relu=relu)
+            err = int((got.int() - want.int()).abs().max())
+            worst = max(worst, err)
+            if err:
+                raise AssertionError(f"gemm_int8 {label}, w {layout}: kernel differs from the "
+                                     f"plain version by up to {err}")
+        if splits > 1:
+            split.append(f"{label} S={splits}")
+    if len(split) < 3:
+        raise AssertionError(f"gemm_int8: the long-K cases should split K; split {split}")
     a = torch.full((32, 512), 127, dtype=torch.int8, device="cuda")
     w = torch.full((512, 32), 127, dtype=torch.int8, device="cuda")
     zero = torch.zeros(32, dtype=torch.int32, device="cuda")
-    sat = gemm_kernel.gemm_int8_cuda(a, w, zero, shift=0, relu=False)
-    neg = gemm_kernel.gemm_int8_cuda(a, -w, zero, shift=0, relu=False)
-    if not (bool((sat == 127).all()) and bool((neg == -128).all())):
-        raise AssertionError("gemm_int8 does not saturate at shift 0")
+    for ww, nw in ((w, -w), (col_major(w), col_major(-w))):
+        sat = gemm_kernel.gemm_int8_cuda(a, ww, zero, shift=0, relu=False)
+        neg = gemm_kernel.gemm_int8_cuda(a, nw, zero, shift=0, relu=False)
+        if not (bool((sat == 127).all()) and bool((neg == -128).all())):
+            raise AssertionError("gemm_int8 does not saturate at shift 0")
     # negative accumulators at odd shifts: the shift must be arithmetic
     a = torch.full((16, 32), -3, dtype=torch.int8, device="cuda")
     w = torch.full((32, 16), 5, dtype=torch.int8, device="cuda")
     b = torch.arange(-8, 8, dtype=torch.int32, device="cuda") * 37
     for shift in (1, 3, 5, 7):
-        got = gemm_kernel.gemm_int8_cuda(a, w, b, shift=shift, relu=False)
-        if not torch.equal(got, gemm_int8_reference(a, w, b, shift=shift)):
-            raise AssertionError(f"gemm_int8 negative accumulators at shift {shift}")
+        for ww in (w, col_major(w)):
+            got = gemm_kernel.gemm_int8_cuda(a, ww, b, shift=shift, relu=False)
+            if not torch.equal(got, gemm_int8_reference(a, w, b, shift=shift)):
+                raise AssertionError(f"gemm_int8 negative accumulators at shift {shift}")
+    # the int32 wrap, as JAX's int32 dot: M = N = 1, K = 2^17, all -128 sums
+    # to 2^31, which wraps to -2^31 (output -128 at shift 0; a saturating
+    # route gives 2^31 - 1 and +127). Four routes must give -128: the
+    # row-major kernel, the column-major one (K split), the plain version on
+    # the card (float64 through int64) and the CPU's int32 product. At N = 1
+    # the two layouts are the same bytes; the strides tell them apart.
+    K = 2**17
+    a = torch.full((1, K), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((K, 1), -128, dtype=torch.int8, device="cuda")
+    w_col = torch.empty_strided((K, 1), (1, K), dtype=torch.int8, device="cuda").copy_(w)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    splits = gemm_kernel.split_k(1, 1, K, sms)
+    wrap = {"row-major kernel": gemm_kernel.gemm_int8_cuda(a, w, zero, shift=0, relu=False),
+            f"column-major kernel (S={splits})":
+                gemm_kernel.gemm_int8_cuda(a, w_col, zero, shift=0, relu=False),
+            "plain on the card": gemm_int8_reference(a, w, zero, shift=0),
+            "CPU int32": gemm_int8_reference(a.cpu(), w.cpu(), zero.cpu(), shift=0)}
+    wrap = {key: int(v) for key, v in wrap.items()}
+    if set(wrap.values()) != {-128} or splits < 2:
+        raise AssertionError(f"gemm_int8 at K = 2^17, all -128: {wrap}, want -128 from each")
     # float64 on the card is the int32 product: at ResNet-50's largest K, with
     # the largest |acc| (every term 2^14) and random inputs
     for label, (a, w, b, _) in (
@@ -860,9 +902,11 @@ def check_gemm_int8(gemm_kernel, report) -> int:
                 raise AssertionError(f"plain gemm_int8 on the card (float64) differs from "
                                      f"the CPU's int32 product ({label}, shift {shift})")
     torch.cuda.synchronize()
-    report(f"kernel check gemm_int8 TestGemmInt8 inputs ({len(cases)} cases), saturation, "
-           f"negative accumulators at odd shifts: bit-equal to the plain version (max |diff| "
-           f"{worst}); the plain version on the card equals the CPU's int32 product at K 4608")
+    report(f"kernel check gemm_int8 w row-major and column-major, TestGemmInt8 inputs and "
+           f"few-block long-K shapes ({len(cases)} cases; K split on {', '.join(split)}), "
+           f"saturation, negative accumulators at odd shifts: bit-equal to the plain version "
+           f"(max |diff| {worst}); M = N = 1, K = 2^17, all -128: {json.dumps(wrap)}; the "
+           f"plain version on the card equals the CPU's int32 product at K 4608")
     return worst
 
 
@@ -871,9 +915,12 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
     RESNET50_BATCHES: kernel M = batch x positions, N = output channels, K =
     in_ch * kh * kw, shift 7, each node's ReLU and residual. One checked pass
     (every output bit-equal to the plain version), then timed passes, and
-    with ``profile`` a profiler window over one more pass. Every launch count
-    is set to 0 before and read after; gemm_int8 must have launched 54 times
-    a pass, the other kernels not at all. Returns the counts."""
+    with ``profile`` a profiler window over one more pass. Each node's w is
+    stored column-major once, as the layer is built (the weight load, not
+    timed), so every GEMM takes the K-major kernel. Every launch count is set
+    to 0 before and read after; gemm_int8 must have launched 54 times a pass
+    (its split-K reductions run inside those calls), the other kernels not at
+    all. Returns the counts."""
     from repro_torch.kernels.gemm_int8 import ops
     from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference
 
@@ -890,7 +937,7 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
             for j in range(count):
                 a, w, b, res = gemm_inputs(batch * n, m, k, seed=SEED + 1000 + len(layers),
                                            residual=residual)
-                layers.append((f"{name} #{j}", a, w, b, res, relu))
+                layers.append((f"{name} #{j}", a, col_major(w), b, res, relu))
 
         def network():
             return [ops.gemm_int8(a, w, b, shift=RESNET50_SHIFT, relu=relu, residual=res)
@@ -912,7 +959,8 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
         n_bytes = sum(t.numel() * t.element_size() for node in layers for t in node[1:5]
                       if t is not None)
         report(f"resnet50 @256 batch {batch}: {nodes} GEMMs ({len(RESNET50_GEMMS)} shapes, "
-               f"each node its own operands, {n_bytes / 1e6:.1f} MB of inputs) bit-equal "
+               f"each node its own operands, w column-major, {n_bytes / 1e6:.1f} MB of "
+               f"inputs) bit-equal "
                f"to the plain version; network {ms:.4f} ms launched from Python "
                f"({gop / ms:.2f} TOPS, {batch / ms * 1e3:.1f} images/s), {dev_ms:.4f} ms "
                f"replayed as a CUDA graph ({gop / dev_ms:.2f} TOPS, "
@@ -933,54 +981,97 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
 
 
 def time_gemm(gemm_kernel, hw, report) -> dict:
-    """Kernel, plain and library time of the GEMM of GEMM_TIMED, and its bound."""
+    """Kernel, plain and library time of the GEMM of GEMM_TIMED, and its bound.
+    The row's kernel is the K-major one on column-major w and its library
+    call ``_int_mm`` + the same epilogue on that layout; the row-major kernel,
+    ``_int_mm`` + epilogue on row-major w and ``_int_mm`` alone in both
+    layouts are reported beside them."""
     from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference, requantize
 
     name, batch = GEMM_TIMED
     _, m, n, k, relu, residual, _ = next(r for r in RESNET50_GEMMS if r[0] == name)
     M, N, K = batch * n, m, k
     a, w, b, res = gemm_inputs(M, N, K, seed=SEED + 500, residual=residual)
+    w_col = col_major(w)  # the layout change itself is not timed
     kw = dict(shift=RESNET50_SHIFT, relu=relu, residual=res)
+    sms = gemm_kernel.sm_count(torch.cuda.current_device())
 
-    def library():  # one PyTorch call for the product, the same epilogue in torch ops
-        return requantize(torch._int_mm(a, w), b, **kw)
+    def kernel(ww=w_col):
+        return gemm_kernel.gemm_int8_cuda(a, ww, b, **kw)
 
-    # the kernel's contract is w (K, N) row-major; cuBLASLt's int8 product
-    # prefers w column-major, so _int_mm is timed on that layout too (the
-    # layout change itself not timed)
-    w_col = w.t().contiguous().t()
-    if not torch.equal(library(), gemm_kernel.gemm_int8_cuda(a, w, b, **kw)):
-        raise AssertionError("gemm_int8: _int_mm + epilogue differs from the kernel")
-    if not torch.equal(torch._int_mm(a, w_col), torch._int_mm(a, w)):
-        raise AssertionError("gemm_int8: _int_mm on column-major w differs")
+    def library(ww=w_col):  # one PyTorch call for the product, the same epilogue in torch ops
+        return requantize(torch._int_mm(a, ww), b, **kw)
+
+    want = gemm_int8_reference(a, w, b, **kw)
+    for label, got in (("the K-major kernel", kernel()), ("the row-major kernel", kernel(w)),
+                       ("_int_mm + epilogue", library()),
+                       ("_int_mm + epilogue on row-major w", library(w))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"gemm_int8 at {name}: {label} differs from the plain version")
     # the kernel is as short as a launch from Python: time each candidate as
     # device time from a CUDA graph, and the kernel launched from Python too
-    def kernel():
-        return gemm_kernel.gemm_int8_cuda(a, w, b, **kw)
-
     kernel_ms = graph_ms(kernel, 20)
+    row_ms = graph_ms(lambda: kernel(w), 20)
     plain_ms = graph_ms(lambda: gemm_int8_reference(a, w, b, **kw), 20)
     library_ms = graph_ms(library, 20)
+    library_row_ms = graph_ms(lambda: library(w), 20)
     int_mm_ms = graph_ms(lambda: torch._int_mm(a, w), 20)
     int_mm_col_ms = graph_ms(lambda: torch._int_mm(a, w_col), 20)
-    library_col_ms = graph_ms(lambda: requantize(torch._int_mm(a, w_col), b, **kw), 20)
     kernel_ms2 = graph_ms(kernel, 20)
+    row_ms2 = graph_ms(lambda: kernel(w), 20)
     eager_ms = cuda_ms(kernel, 50)
     n_ops = 2 * M * N * K
     n_bytes = M * K + K * N + 4 * N + M * N + (M * N if residual else 0)
     bound_s, bound_by = hw.bound_seconds(n_bytes, n_ops, hw.INT8_TENSOR_OPS)
+    splits, bn = gemm_kernel.split_k(M, N, K, sms), gemm_kernel.block_n(M, N, sms)
     report(f"timing gemm_int8 {name} batch {batch} (M={M} N={N} K={K}, relu {relu}), device "
-           f"time from CUDA graphs: kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms "
-           f"({n_ops / kernel_ms / 1e9:.1f} TOPS), plain (float64 product) {plain_ms:.4f} ms, "
-           f"library (torch._int_mm + epilogue) {library_ms:.4f} ms, torch._int_mm alone "
-           f"{int_mm_ms:.4f} ms; with w column-major (cuBLASLt's preferred layout, not the "
-           f"kernel's contract) _int_mm + epilogue {library_col_ms:.4f} ms, _int_mm alone "
-           f"{int_mm_col_ms:.4f} ms; the kernel launched from Python {eager_ms:.4f} ms a call; bound "
+           f"time from CUDA graphs: K-major kernel on column-major w (128 x {bn} blocks, S="
+           f"{splits}) {kernel_ms:.4f} / {kernel_ms2:.4f} ms ({n_ops / kernel_ms / 1e9:.1f} "
+           f"TOPS), row-major kernel {row_ms:.4f} / {row_ms2:.4f} ms, plain (float64 product) "
+           f"{plain_ms:.4f} ms, library (torch._int_mm + epilogue) column-major w "
+           f"{library_ms:.4f} ms, row-major w {library_row_ms:.4f} ms; torch._int_mm alone "
+           f"column-major {int_mm_col_ms:.4f} ms, row-major {int_mm_ms:.4f} ms; the K-major "
+           f"kernel launched from Python {eager_ms:.4f} ms a call; bound "
            f"{bound_s * 1e3:.4f} ms by {bound_by} ({n_bytes / 1e6:.2f} MB at "
            f"{hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s; {n_ops / 1e9:.2f} G int8 ops at "
            f"{hw.INT8_TENSOR_OPS / 1e12:.0f} TOPS)")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms, "timed": "graph"}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "torch._int_mm + epilogue, w column-major", "timed": "graph",
+            "splits": splits, "block_n": bn, "row_major_ms": row_ms,
+            "library_row_major_ms": library_row_ms, "int_mm_ms": int_mm_col_ms,
+            "int_mm_row_major_ms": int_mm_ms}
+
+
+def gemm_shape_table(gemm_kernel, report) -> None:
+    """For each of ResNet-50's 22 GEMM shapes at each batch of
+    RESNET50_BATCHES: the K-major kernel's device time from a CUDA graph (its
+    operands L2-warm, unlike the network pass), its split S, and ``_int_mm``
+    + the epilogue on the same column-major w (null where ``_int_mm`` refuses
+    the shape); one line a batch."""
+    from repro_torch.kernels.gemm_int8.ref import requantize
+
+    sms = gemm_kernel.sm_count(torch.cuda.current_device())
+    for batch in RESNET50_BATCHES:
+        rows = []
+        for i, (name, m, n, k, relu, residual, _) in enumerate(RESNET50_GEMMS):
+            M, N, K = batch * n, m, k
+            a, w, b, res = gemm_inputs(M, N, K, seed=SEED + 600 + i, residual=residual)
+            w = col_major(w)
+            kw = dict(shift=RESNET50_SHIFT, relu=relu, residual=res)
+            ms = graph_ms(lambda: gemm_kernel.gemm_int8_cuda(a, w, b, **kw), 10)
+            try:  # a yardstick: _int_mm takes only some shapes (M > 16, K % 8 == 0)
+                torch._int_mm(a, w)
+                lib_ms = graph_ms(lambda: requantize(torch._int_mm(a, w), b, **kw), 10)
+            except RuntimeError:
+                lib_ms = None
+            rows.append({"name": name, "M": M, "N": N, "K": K,
+                         "S": gemm_kernel.split_k(M, N, K, sms),
+                         "block_n": gemm_kernel.block_n(M, N, sms), "ms": ms,
+                         "library_ms": lib_ms})
+        torch.cuda.empty_cache()
+        report(f"gemm_int8 per shape, batch {batch} (K-major kernel on column-major w, CUDA "
+               f"graph; library = torch._int_mm + epilogue, same w): {json.dumps(rows)}")
 
 
 def drive_pipeline(kernel_mods, report, profile=False) -> dict:
@@ -1225,6 +1316,7 @@ def main() -> int:
                 "replaces": "src/repro/kernels/gemm_int8/kernel.py:62",
                 "launches": launches["gemm_int8"], "max_abs_err": gemm_err,
                 **time_gemm(gemm_kernel, hw, report)}
+    gemm_shape_table(gemm_kernel, report)
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row]}))

@@ -7,10 +7,14 @@ FusedConvAdd(ReLU) dataflow of the PU post-processing block).
 Bit-exact on both devices. On the CPU the product is an int32 matmul. CUDA
 has no integer matmul (cuBLAS has none, and PyTorch's CUDA ``matmul``
 refuses int32 and int64: checked on an H100 with torch 2.11 + CUDA 12.8 by
-``chip_smoke.py``), so on the card the product is taken in float64: each term
-is an integer of magnitude at most 2^14, each sum at most 2^14 K, exact
-while 2^14 K < 2^53, and then converted to int32. The epilogue is int32 on
-both devices, so it wraps where JAX's int32 arithmetic wraps.
+``chip_smoke.py``), so on the card the product is taken in float64
+(``_float64_product``): each term is an integer of magnitude at most 2^14,
+so the float64 sum (at most 2^14 K in magnitude) is exact while
+2^14 K < 2^53. That bounds the float64 sum, not the int32 result: the sum
+is taken through int64 to int32, which wraps modulo 2^32 as JAX's int32
+``jnp.dot`` and the kernel do (a float-to-int32 cast would saturate on the
+card and give -2^31 on the CPU). The epilogue is int32 on both devices, so
+it wraps where JAX's int32 arithmetic wraps.
 """
 from __future__ import annotations
 
@@ -19,9 +23,15 @@ from typing import Optional
 import torch
 
 
+def _float64_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The int32 product of int8 a and w, wrapped modulo 2^32, taken in
+    float64 (exact while 2^14 K < 2^53) on any device."""
+    return (a.double() @ w.double()).to(torch.int64).to(torch.int32)
+
+
 def _int32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
-        return (a.double() @ w.double()).to(torch.int32)
+        return _float64_product(a, w)
     return a.to(torch.int32) @ w.to(torch.int32)
 
 

@@ -273,11 +273,19 @@ def _gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
     return [None if x is None else torch.from_numpy(x).cuda() for x in (a, w, b, res)]
 
 
+def _layout(w, layout):
+    """The same (K, N) matrix row-major (N contiguous) or column-major (K
+    contiguous); each layout takes its own kernel."""
+    return w if layout == "row" else w.t().contiguous().t()
+
+
 # (m, n, k, shift, relu, residual): TestGemmInt8's shapes
-# (tests/test_kernels.py:93-134) with their epilogues, and three of
+# (tests/test_kernels.py:93-134) with their epilogues, and five of
 # ResNet-50's GEMMs at batch 1 as chip_smoke.py maps them (M = positions,
-# N = output channels): conv1 (ragged K = 147), layer3's FusedConvAdd(ReLU)
-# and fc (M = 1, N = 1000). Integer sums are exact in any order: bit-equal.
+# N = output channels): conv1 (ragged K = 147), layer3's FusedConvAdd(ReLU),
+# fc (M = 1, N = 1000), layer3's 3x3 conv and layer4's with a residual (few
+# blocks, long K: the column-major kernel splits K on them, as on fc). Integer
+# sums are exact in any order: bit-equal.
 GEMM_CASES = [
     (64, 64, 64, 7, False, False),
     (128, 128, 256, 7, False, False),
@@ -289,15 +297,18 @@ GEMM_CASES = [
     (16384, 64, 147, 7, True, False),
     (256, 1024, 256, 7, True, True),
     (1, 1000, 2048, 7, False, False),
+    (256, 256, 2304, 7, True, False),
+    (64, 512, 4608, 7, True, True),
 ]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["row", "col"])
 @pytest.mark.parametrize("m,n,k,shift,relu,residual", GEMM_CASES)
-def test_gemm_int8_kernel_matches_plain(cuda, m, n, k, shift, relu, residual):
+def test_gemm_int8_kernel_matches_plain(cuda, m, n, k, shift, relu, residual, layout):
     a, w, b, res = _gemm_inputs(m, n, k, seed=m + n + k, residual=residual)
     before = gemm_kernel.launches
-    out = gemm_ops.gemm_int8(a, w, b, shift=shift, relu=relu, residual=res)
+    out = gemm_ops.gemm_int8(a, _layout(w, layout), b, shift=shift, relu=relu, residual=res)
     torch.cuda.synchronize()
     assert gemm_kernel.launches == before + 1
     want = gemm_int8_reference(a, w, b, shift=shift, relu=relu, residual=res)
@@ -308,40 +319,103 @@ def test_gemm_int8_kernel_matches_plain(cuda, m, n, k, shift, relu, residual):
 
 
 @pytest.mark.gpu
+def test_gemm_int8_splits_k_on_few_block_shapes(cuda):
+    """On the card's SM count the planner splits the few-block cases above,
+    and the split is bit-equal to the unsplit row-major kernel."""
+    sms = gemm_kernel.sm_count(torch.cuda.current_device())
+    for m, n, k in ((1, 1000, 2048), (256, 256, 2304), (64, 512, 4608)):
+        assert gemm_kernel.split_k(m, n, k, sms) > 1
+        a, w, b, _ = _gemm_inputs(m, n, k, seed=k)
+        col = gemm_kernel.gemm_int8_cuda(a, _layout(w, "col"), b, shift=7, relu=False)
+        row = gemm_kernel.gemm_int8_cuda(a, w, b, shift=7, relu=False)
+        assert torch.equal(col, row)
+
+
+@pytest.mark.gpu
+def test_gemm_int8_wraps_as_jax(cuda):
+    """M = N = 1, K = 2^17, all -128: the sum 2^31 wraps to -2^31, as JAX's
+    int32 dot does, and the output at shift 0 is -128 from the row-major
+    kernel, the column-major one (K split into slices), the plain version on
+    the card and the CPU's int32 product; a saturating route gives +127."""
+    K = 2**17
+    a = torch.full((1, K), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((K, 1), -128, dtype=torch.int8, device="cuda")
+    w_col = torch.empty_strided((K, 1), (1, K), dtype=torch.int8, device="cuda").copy_(w)
+    assert gemm_kernel.w_layout(w) == "row" and gemm_kernel.w_layout(w_col) == "col"
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    outs = [gemm_kernel.gemm_int8_cuda(a, w, zero, shift=0, relu=False),
+            gemm_kernel.gemm_int8_cuda(a, w_col, zero, shift=0, relu=False),
+            gemm_int8_reference(a, w, zero, shift=0),
+            gemm_int8_reference(a.cpu(), w.cpu(), zero.cpu(), shift=0)]
+    torch.cuda.synchronize()
+    assert [int(o) for o in outs] == [-128] * 4
+
+
+@pytest.mark.gpu
 def test_gemm_int8_saturates_and_shifts_negatives(cuda):
     a = torch.full((32, 512), 127, dtype=torch.int8, device="cuda")
     w = torch.full((512, 32), 127, dtype=torch.int8, device="cuda")
-    out = gemm_ops.gemm_int8(a, w, shift=0)
-    assert int(out.min()) == int(out.max()) == 127
-    assert int(gemm_ops.gemm_int8(a, -w, shift=0).max()) == -128
+    for layout in ("row", "col"):
+        out = gemm_ops.gemm_int8(a, _layout(w, layout), shift=0)
+        assert int(out.min()) == int(out.max()) == 127
+        assert int(gemm_ops.gemm_int8(a, _layout(-w, layout), shift=0).max()) == -128
     a = torch.full((16, 32), -3, dtype=torch.int8, device="cuda")
     w = torch.full((32, 16), 5, dtype=torch.int8, device="cuda")
     b = (torch.arange(-8, 8, dtype=torch.int32) * 37).cuda()
     for shift in (1, 3, 5, 7):
-        got = gemm_ops.gemm_int8(a, w, b, shift=shift)
-        assert torch.equal(got, gemm_int8_reference(a, w, b, shift=shift))
-        assert bool((got < 0).all())
+        for layout in ("row", "col"):
+            got = gemm_ops.gemm_int8(a, _layout(w, layout), b, shift=shift)
+            assert torch.equal(got, gemm_int8_reference(a, w, b, shift=shift))
+            assert bool((got < 0).all())
 
 
 @pytest.mark.gpu
-def test_gemm_int8_unaligned_rows_take_the_byte_loads(cuda):
-    """Contiguous operands one byte off their allocation: the kernel's
-    16-byte and 4-byte loads would be misaligned, so it takes its byte loads."""
+@pytest.mark.parametrize("layout", ["row", "col"])
+def test_gemm_int8_unaligned_rows_take_the_byte_loads(cuda, layout):
+    """Contiguous operands one byte off their allocation: the kernels'
+    16-byte loads would be misaligned, so the row-major kernel takes its
+    byte loads and the column-major one its word gathers."""
     m, n, k = 96, 64, 128
     a0, w0, b, res0 = _gemm_inputs(m, n, k, seed=7, residual=True)
     a = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")[1:].view(m, k).copy_(a0)
-    w = torch.empty(k * n + 1, dtype=torch.int8, device="cuda")[1:].view(k, n).copy_(w0)
+    if layout == "row":
+        w = torch.empty(k * n + 1, dtype=torch.int8, device="cuda")[1:].view(k, n).copy_(w0)
+    else:
+        w = torch.empty(k * n + 1, dtype=torch.int8, device="cuda")[1:].view(n, k).t()
+        w.copy_(w0)
+    assert gemm_kernel.w_layout(w) == layout
+    out = gemm_kernel.gemm_int8_cuda(a, w, b, res0, shift=7, relu=True)
+    assert torch.equal(out, gemm_int8_reference(a0, w0, b, shift=7, relu=True, residual=res0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("m,n,k", [(130, 72, 147), (33, 65, 300), (64, 256, 2053)])
+def test_gemm_int8_column_major_gathers_at_any_alignment(cuda, m, n, k, offset):
+    """The column-major kernel's word gathers (K % 16 != 0 or a base off 16
+    bytes) at every byte offset, ragged M and N, and a long odd K that
+    splits, against the plain version."""
+    a0, w0, b, res0 = _gemm_inputs(m, n, k, seed=k + offset, residual=True)
+    a = torch.empty(m * k + offset, dtype=torch.int8, device="cuda")[offset:].view(m, k)
+    w = torch.empty(k * n + offset, dtype=torch.int8, device="cuda")[offset:].view(n, k).t()
+    a.copy_(a0)
+    w.copy_(w0)
     out = gemm_kernel.gemm_int8_cuda(a, w, b, res0, shift=7, relu=True)
     assert torch.equal(out, gemm_int8_reference(a0, w0, b, shift=7, relu=True, residual=res0))
 
 
 @pytest.mark.gpu
 def test_gemm_int8_refuses_non_contiguous(cuda):
+    """w of neither layout (strides (2N, 2)) and a column-major a are
+    refused; a column-major w is a layout of the contract."""
     a, w, b, _ = _gemm_inputs(64, 64, 64, seed=0)
+    neither = torch.empty((64, 128), dtype=torch.int8, device="cuda")[:, ::2].copy_(w)
     with pytest.raises(ValueError, match="contiguous"):
-        gemm_kernel.gemm_int8_cuda(a, w.t(), b, shift=7, relu=False)
+        gemm_kernel.gemm_int8_cuda(a, neither, b, shift=7, relu=False)
     with pytest.raises(ValueError, match="contiguous"):
         gemm_kernel.gemm_int8_cuda(a.t(), w, b, shift=7, relu=False)
+    out = gemm_kernel.gemm_int8_cuda(a, w.t().contiguous().t(), b, shift=7, relu=False)
+    assert torch.equal(out, gemm_int8_reference(a, w, b, shift=7))
 
 
 # ------------------------------------------------------ pipeline executor --

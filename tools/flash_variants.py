@@ -10,9 +10,10 @@ into ``build/kernels/``. Every variant but the one-product one is checked
 against ``mha_reference`` (2e-5 at a small windowed shape, 1e-4 at the
 timed shapes); each is timed with CUDA events at the three shapes the main
 paths launch the kernel at, all variants in turn and then again in reverse
-order. A microbenchmark then times independent mma.sync m16n8k8 tf32 and
-m16n8k16 bf16 products (8 accumulators a warp, 8 warps a block, 4 blocks an
-SM). The last line is a JSON object with every number.
+order. A microbenchmark then times independent mma.sync m16n8k8 tf32,
+m16n8k16 bf16 and m16n8k32 s8 products (8 accumulators a warp, 8 warps a
+block, 4 blocks an SM), the ceiling of the INT8 PU GEMM's instruction. The
+last line is a JSON object with every number.
 """
 from __future__ import annotations
 
@@ -82,9 +83,27 @@ __global__ void mma_bench(int iters, float* out) {
   for (int c = 0; c < 8; ++c) acc += d[c][0] + d[c][1] + d[c][2] + d[c][3];
   if (acc == 1.2345f) out[0] = acc;
 }
-extern "C" int mma_bench_launch(int tf32, int iters, int blocks, float* out, void* stream) {
+__global__ void mma_bench_s8(int iters, float* out) {
+  int d[8][4] = {};
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x + 1, threadIdx.x + 2, threadIdx.x + 3};
+  const uint32_t b[2] = {threadIdx.x * 3u, threadIdx.x * 5u};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+                   "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                   : "+r"(d[c][0]), "+r"(d[c][1]), "+r"(d[c][2]), "+r"(d[c][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  int acc = 0;
+  for (int c = 0; c < 8; ++c) acc += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  if (acc == 12345) out[0] = (float)acc;
+}
+// kind 0 = bf16, 1 = tf32, 2 = s8
+extern "C" int mma_bench_launch(int kind, int iters, int blocks, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tf32) mma_bench<1><<<blocks, 256, 0, st>>>(iters, out);
+  if (kind == 2) mma_bench_s8<<<blocks, 256, 0, st>>>(iters, out);
+  else if (kind == 1) mma_bench<1><<<blocks, 256, 0, st>>>(iters, out);
   else mma_bench<0><<<blocks, 256, 0, st>>>(iters, out);
   return cudaGetLastError();
 }
@@ -191,15 +210,19 @@ def main() -> int:
     out = torch.zeros(4, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, iters = 4 * sms, 4096
-    for name, tf32, flop in (("tf32 m16n8k8", 1, 2 * 16 * 8 * 8), ("bf16 m16n8k16", 0, 2 * 16 * 8 * 16)):
+    for name, kind, flop in (("tf32 m16n8k8", 1, 2 * 16 * 8 * 8),
+                             ("bf16 m16n8k16", 0, 2 * 16 * 8 * 16),
+                             ("s8 m16n8k32", 2, 2 * 16 * 8 * 32)):
         def run():
-            if bench_fn(tf32, iters, blocks, out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+            stream = torch.cuda.current_stream().cuda_stream
+            if bench_fn(kind, iters, blocks, out.data_ptr(), stream):
                 raise RuntimeError("mma_bench launch failed")
 
         ms = cuda_ms(run, 3)
         tflops = blocks * 8 * iters * 8 * flop / (ms * 1e-3) / 1e12
         result["mma_tflops"][name] = tflops
-        print(f"mma.sync {name}: {tflops:.1f} TFLOP/s ({blocks} blocks of 8 warps, 8 "
+        unit = "TOPS" if kind == 2 else "TFLOP/s"
+        print(f"mma.sync {name}: {tflops:.1f} {unit} ({blocks} blocks of 8 warps, 8 "
               f"accumulators a warp)  [{card}]")
     print(json.dumps(result))
     return 0
