@@ -39,7 +39,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    window), against the plain forward on the same tokens at 2e-3, its token
    operations equal to what the programs prescribe;
 6. timing: each kernel, its plain version and the PyTorch library call (where
-   one exists) at its main-path shape, beside the card's bound; each row of
+   one exists) at its main-path shapes (flash attention at three, wkv6 at the
+   prefill and at the decode step), beside the card's bound; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
    the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch.
@@ -397,7 +398,11 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     ``per_decode`` give each of the path's kernels' launches per prefill call
     and per decode step; every launch count in ``kernel_mods`` is set to 0
     just before the prefill and read just after serving, and must equal what
-    they give (0 for a kernel they do not name). Returns the counts."""
+    they give (0 for a kernel they do not name). Returns the counts, and each
+    kernel's launches split into prefill calls (those at the full prefill
+    shape apart) and decode steps, each read from the counts on the path:
+    after the full-shape prefills, after the last prefill call (before the
+    first decode step, and checked there too) and after serving."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.runtime.serve import ServingEngine, make_prefill, make_serve_step
@@ -440,7 +445,8 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     prefill_ms = cuda_ms(lambda: prefill(params, batch), PREFILL_ITERS, warmup=1)
     prefill_calls += 1 + PREFILL_ITERS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    got = {name: kernel_mods[name].launches for name in per_prefill}
+    full_shape = {name: mod.launches for name, mod in kernel_mods.items()}  # PREFILL_BATCH x LEN
+    got = {name: full_shape[name] for name in per_prefill}
     if got != {name: n * prefill_calls for name, n in per_prefill.items()}:
         raise AssertionError(f"prefill launches {got} != "
                              f"{', '.join(_per_call(per_prefill, prefill_calls, 'calls'))}")
@@ -459,6 +465,11 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
                              device="cuda")
     batched = prefill(params, {"tokens": torch.cat([prompt, others])})[0]
     prefill_calls += 2
+    # every prefill call has run and no decode step yet: the prefill launches
+    at_prefill = {name: mod.launches for name, mod in kernel_mods.items()}
+    want = {name: per_prefill.get(name, 0) * prefill_calls for name in kernel_mods}
+    if at_prefill != want:
+        raise AssertionError(f"{arch} prefill calls launched {at_prefill}, want {want}")
     step = make_serve_step(cfg)
     cache = tf.init_cache(cfg, 1, CONSISTENCY_LEN, dtype=torch.float32)
     dec = []
@@ -530,7 +541,11 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
 
     if profile:
         profile_phase(cfg, params, prefill, batch, step, tf.init_cache, rng, report)
-    return launches
+    # each count read on the path: after the full-shape prefills, after every
+    # prefill call (before the first decode step) and after serving
+    split = {name: {"prefill": at_prefill[name], "prefill_full_shape": full_shape[name],
+                    "decode": launches[name] - at_prefill[name]} for name in kernel_mods}
+    return launches, split
 
 
 def check_flash_attention(fa_kernel, mha_reference, report) -> float:
@@ -611,9 +626,9 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
     return slice_err
 
 
-def check_wkv6(wkv6_kernel, report) -> float:
-    """The wkv6 kernel against wkv6_reference; returns the error at the
-    rwkv6-7b prefill shape."""
+def check_wkv6(wkv6_kernel, report) -> tuple[float, float]:
+    """The wkv6 kernel against wkv6_reference; returns the errors at the
+    rwkv6-7b prefill shape and at its decode step."""
     from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_reference
 
     # (b, s, H, P, state scale): the TestWKV6 inputs, tests/test_kernels.py:
@@ -664,9 +679,10 @@ def check_wkv6(wkv6_kernel, report) -> float:
         raise AssertionError("wkv6 did not write the state in place")
     for g, w in zip((y, state), want):
         torch.testing.assert_close(g, w, rtol=WKV6_TOL, atol=WKV6_TOL)
+    decode_err = max_err((y, state), want)
     report(f"kernel check wkv6 decode step b=1 s=1 H={H} P={P}, state written in place: "
-           f"max_abs_err {max_err((y, state), want):.3e} (tol {WKV6_TOL})")
-    return prefill_err
+           f"max_abs_err {decode_err:.3e} (tol {WKV6_TOL})")
+    return prefill_err, decode_err
 
 
 def check_ssd_scan(ssd_kernel, report) -> float:
@@ -785,6 +801,49 @@ def time_flash(fa_kernel, hw, label, b, s, H, G, hd, window, report) -> dict:
             "bound_by": bound_by, "bound_fp32_cuda_ms": fp32_s * 1e3, "library_ms": library_ms,
             "library": library, "library_enable_gqa_ms": gqa_ms, "library_expanded_ms": exp_ms,
             "timed": "events"}
+
+
+def time_wkv6(wkv6_kernel, hw, label, b, s, H, P, report) -> dict:
+    """Kernel and plain times of wkv6 at one main-path shape, and its bound.
+    The prefill (s > 1) is timed with CUDA events around launches from
+    Python, against ``wkv6_chunked`` (and the sequential ``wkv6_reference``
+    for the record); the decode step (s = 1, the state updated in place, as
+    the model's cache update does) as device time from a CUDA graph, since
+    from Python a launch's host cost would hide the kernel, against
+    ``wkv6_reference`` (the CPU dispatch's plain version at s = 1)."""
+    from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_reference
+
+    args = wkv6_inputs(b, s, H, P, seed=SEED + 5, state_scale=0.5 if s == 1 else 0.0,
+                       model_decay=True)
+    if s > 1:
+        kernel = lambda: wkv6_kernel.wkv6_cuda(*args)  # noqa: E731
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(lambda: wkv6_chunked(*args), 5)
+        seq_ms = cuda_ms(lambda: wkv6_reference(*args), 2, warmup=1)
+        ms2 = cuda_ms(kernel, 20)
+        plain, timed = "wkv6_chunked", "events"
+        extra = f", sequential plain (wkv6_reference) {seq_ms:.4f} ms"
+    else:
+        state = args[5]
+        kernel = lambda: wkv6_kernel.wkv6_cuda(*args, state_out=state)  # noqa: E731
+        ms = graph_ms(kernel, 20)
+        plain_ms = graph_ms(lambda: wkv6_reference(*args), 20)
+        ms2 = graph_ms(kernel, 20)
+        plain, timed, extra = "wkv6_reference", "graph", ""
+    flops = 5 * b * s * H * P * P  # r.S (2 P^2) and w*S + k*v (3 P^2) a step and head
+    # r, k, v, w and u read, y written, the state read and written once
+    n_bytes = 4 * (5 * b * s * H * P + H * P + 2 * b * H * P * P)
+    bound_s, bound_by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
+    pl = wkv6_kernel.plan(b, s, H, P)
+    report(f"timing wkv6 {label} fp32 b={b} s={s} H={H} P={P} ({timed}): kernel {ms:.4f} / "
+           f"{ms2:.4f} ms, plain ({plain}) {plain_ms:.4f} ms{extra}, library none (no PyTorch "
+           f"call computes this recurrence), bound {bound_s * 1e3:.5f} ms by {bound_by} "
+           f"({n_bytes / 1e6:.2f} MB at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+           f"{flops / 1e9:.4f} GFLOP at fp32 CUDA-core peak {hw.FP32_FLOPS / 1e12:.0f} "
+           f"TFLOP/s); plan {json.dumps(pl)}, {b * H * pl['blocks_per_head']} blocks")
+    return {"shape": label, "b": b, "s": s, "H": H, "P": P, "ms": ms, "plain_ms": plain_ms,
+            "plain": plain, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": None, "timed": timed, "plan": pl}
 
 
 def gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
@@ -1196,7 +1255,6 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import mha_reference
     from repro_torch.kernels.gemm_int8 import kernel as gemm_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
-    from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_reference
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
@@ -1226,7 +1284,7 @@ def main() -> int:
 
     # --------------------------------------------------------- kernel check --
     fa_err = check_flash_attention(fa_kernel, mha_reference, report)
-    wkv6_err = check_wkv6(wkv6_kernel, report)
+    wkv6_err, wkv6_decode_err = check_wkv6(wkv6_kernel, report)
     ssd_err = check_ssd_scan(ssd_kernel, report)
     gemm_err = check_gemm_int8(gemm_kernel, report)
 
@@ -1234,8 +1292,10 @@ def main() -> int:
     kernel_mods = {"flash_attention": fa_kernel, "wkv6": wkv6_kernel, "ssd_scan": ssd_kernel,
                    "gemm_int8": gemm_kernel}
     launches = {name: 0 for name in kernel_mods}
+    split = {}
     for arch, per_prefill, per_decode in PATHS:
-        path = drive_path(arch, kernel_mods, per_prefill, per_decode, report, args.profile)
+        path, split[arch] = drive_path(arch, kernel_mods, per_prefill, per_decode, report,
+                                       args.profile)
         launches = {name: launches[name] + path[name] for name in kernel_mods}
         torch.cuda.empty_cache()  # the path's weights are gone; hand their memory back
     for drive in (drive_resnet50, drive_pipeline):
@@ -1268,27 +1328,22 @@ def main() -> int:
     rcfg = get_config(RWKV_ARCH)
     P = rcfg.ssm_head_dim
     H = rcfg.d_model // P
-    wargs = wkv6_inputs(b, s, H, P, seed=SEED + 5, model_decay=True)
-    wkv_ms = cuda_ms(lambda: wkv6_kernel.wkv6_cuda(*wargs), 20)
-    wkv_plain_ms = cuda_ms(lambda: wkv6_chunked(*wargs), 5)
-    wkv_seq_ms = cuda_ms(lambda: wkv6_reference(*wargs), 2, warmup=1)
-    wkv_ms2 = cuda_ms(lambda: wkv6_kernel.wkv6_cuda(*wargs), 20)
-    flops = 5 * b * s * H * P * P  # r.S (2 P^2) and w*S + k*v (3 P^2) a step and head
-    n_bytes = sum(x.numel() * 4 for x in wargs) + wargs[0].numel() * 4 + wargs[5].numel() * 4
-    wbound_s, wbound_by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
-    report(f"timing wkv6 fp32 b={b} s={s} H={H} P={P}: kernel {wkv_ms:.4f} / {wkv_ms2:.4f} ms, "
-           f"plain (wkv6_chunked) {wkv_plain_ms:.4f} ms, sequential plain (wkv6_reference) "
-           f"{wkv_seq_ms:.4f} ms, library none (no PyTorch call computes this recurrence), "
-           f"bound {wbound_s * 1e3:.4f} ms by {wbound_by} ({n_bytes / 1e6:.1f} MB at "
-           f"{hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s; {flops / 1e9:.2f} GFLOP at fp32 CUDA-core "
-           f"peak {hw.FP32_FLOPS / 1e12:.0f} TFLOP/s)")
+    wkv_split = split[RWKV_ARCH]["wkv6"]
+    wkv_shapes = [time_wkv6(wkv6_kernel, hw, "prefill", b, s, H, P, report),
+                  time_wkv6(wkv6_kernel, hw, "decode", 1, 1, H, P, report)]
+    wkv_shapes[0]["launches"] = wkv_split["prefill"]
+    wkv_shapes[0]["launches_at_this_shape"] = wkv_split["prefill_full_shape"]
+    wkv_shapes[1]["launches"] = wkv_split["decode"]
+    wkv_shapes[0]["max_abs_err"], wkv_shapes[1]["max_abs_err"] = wkv6_err, wkv6_decode_err
+    # the row's own numbers are the prefill shape's (as in earlier rows);
+    # "shapes" holds both main-path shapes, each with its launches
     wkv_row = {"name": "wkv6", "route": "cuda",
                "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
                "replaces": "src/repro/kernels/rwkv6/kernel.py:57",
-               "launches": launches["wkv6"], "max_abs_err": wkv6_err, "ms": wkv_ms,
-               "plain_ms": wkv_plain_ms, "bound_ms": wbound_s * 1e3, "bound_by": wbound_by,
-               "library_ms": None, "timed": "events"}
-    del wargs
+               "launches": launches["wkv6"], "max_abs_err": wkv6_err,
+               **{key: wkv_shapes[0][key] for key in (
+                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed", "plan")},
+               "shapes": wkv_shapes}
 
     H, P, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
     sargs = ssd_inputs(b, s, H, P, N, seed=SEED + 211)
@@ -1299,18 +1354,20 @@ def main() -> int:
     flops = 4 * b * s * H * P * N  # decay*h + (dt x) B and C.h: 4 N P a step and head
     n_bytes = 4 * (sum(x.numel() for x in sargs) + sargs[0].numel() + b * H * N * P)
     sbound_s, sbound_by = hw.bound_seconds(n_bytes, flops, hw.FP32_FLOPS)
+    ssd_plan = ssd_kernel.plan(P, N, s)
     report(f"timing ssd_scan fp32 b={b} s={s} H={H} P={P} N={N}: kernel {ssd_ms:.4f} / "
            f"{ssd_ms2:.4f} ms, plain (ssd_chunked) {ssd_plain_ms:.4f} ms, sequential plain "
            f"(ssd_reference) {ssd_seq_ms:.4f} ms, library none (no PyTorch call computes the "
            f"SSD scan), bound {sbound_s * 1e3:.4f} ms by {sbound_by} ({flops / 1e9:.2f} GFLOP "
            f"at fp32 CUDA-core peak {hw.FP32_FLOPS / 1e12:.0f} TFLOP/s; {n_bytes / 1e6:.1f} MB "
-           f"at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+           f"at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s); plan {json.dumps(ssd_plan)}, "
+           f"{b * H * ssd_plan['blocks_per_head']} blocks")
     ssd_row = {"name": "ssd_scan", "route": "cuda",
                "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                "replaces": "src/repro/kernels/ssd_scan/kernel.py:78",
                "launches": launches["ssd_scan"], "max_abs_err": ssd_err, "ms": ssd_ms,
                "plain_ms": ssd_plain_ms, "bound_ms": sbound_s * 1e3, "bound_by": sbound_by,
-               "library_ms": None, "timed": "events"}
+               "library_ms": None, "timed": "events", "plan": ssd_plan}
     gemm_row = {"name": "gemm_int8", "route": "cuda",
                 "source": "src/repro_torch/kernels/gemm_int8/csrc/gemm_int8.cu",
                 "replaces": "src/repro/kernels/gemm_int8/kernel.py:62",

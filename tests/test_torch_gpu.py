@@ -194,6 +194,63 @@ def test_wkv6_kernel_tile_invariance(cuda):
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-5)
 
 
+def _offset_copy(x, floats=1):
+    """``x`` again, contiguous but starting ``floats`` past a 16-byte boundary:
+    the kernels then stage it with 4-byte copies."""
+    buf = torch.empty(x.numel() + floats, dtype=x.dtype, device=x.device)
+    out = buf[floats:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (b, H, P): every instantiated plan (wkv6_kernel.plan), the rwkv6-7b decode
+# lane's column split (P = 64 at b = 1) and its prefill plan (b = 4)
+WKV6_PLAN_SHAPES = [(1, 2, 8), (1, 2, 16), (2, 3, 32), (1, 64, 64), (4, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,H,P", WKV6_PLAN_SHAPES)
+def test_wkv6_kernel_every_plan(cuda, b, H, P):
+    """Each plan against the plain version at TestWKV6's tolerance, s = 77
+    (a ragged last tile), nonzero state."""
+    args = _wkv6_inputs(b, 77, H, P, seed=b + H + P, state_scale=0.5)
+    y, st = wkv6_kernel.wkv6_cuda(*args)
+    y_ref, st_ref = wkv6_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, st_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,H,P", WKV6_PLAN_SHAPES)
+def test_wkv6_kernel_tile_invariance_every_plan(cuda, b, H, P):
+    """The order of every sum depends on the plan, not the tile: tiles of 1,
+    16 and 75 steps (and 4-byte copies of unaligned rows) give the same bits."""
+    args = _wkv6_inputs(b, 77, H, P, seed=b + H + P + 1, state_scale=0.5)
+    outs = [wkv6_kernel.wkv6_cuda(*args, chunk=c) for c in (1, 16, 75)]
+    outs.append(wkv6_kernel.wkv6_cuda(*(_offset_copy(a) for a in args[:4]), *args[4:]))
+    torch.cuda.synchronize()
+    for y, st in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_decode_column_split_in_place(cuda):
+    """The rwkv6-7b decode step: b = 1, H = 64, P = 64, 16 columns a block
+    (256 blocks), the state read and written in place; and the same step
+    at b = 4, whose plan keeps all 64 columns in a block."""
+    assert wkv6_kernel.plan(1, 1, 64, 64)["pc"] == 16
+    assert wkv6_kernel.plan(4, 1, 64, 64)["pc"] == 64
+    for b in (1, 4):
+        args = _wkv6_inputs(b, 1, 64, 64, seed=64 + b, state_scale=0.5, model_decay=True)
+        state = args[5]
+        y_ref, st_ref = wkv6_reference(*args[:5], state.clone())
+        y, st = wkv6_kernel.wkv6_cuda(*args, state_out=state)
+        torch.cuda.synchronize()
+        assert st is state
+        torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(state, st_ref, rtol=2e-4, atol=2e-4)
+
+
 # --------------------------------------------------------------- ssd scan --
 def _ssd_inputs(b, s, H, P, N, seed, model=False):
     """TestSSDScan's distributions (tests/test_kernels.py:139-146): xh, B, C ~
@@ -258,6 +315,33 @@ def test_ssd_kernel_tile_invariance(cuda):
     sums: tiles of 8, 32 and 42 steps give the same bits."""
     args = _ssd_inputs(1, 100, 4, 64, 64, seed=4)
     outs = [ssd_kernel.ssd_scan_cuda(*args, chunk=c) for c in (8, 32, 42)]
+    torch.cuda.synchronize()
+    for y, h in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", ssd_kernel.SHAPES)
+def test_ssd_kernel_every_plan(cuda, P, N):
+    """Each instantiated (P, N) and its plan against the sequential
+    recurrence at TestSSDScan's tolerance, s = 77 (a ragged last tile)."""
+    args = _ssd_inputs(2, 77, 3, P, N, seed=P + N)
+    y, h = ssd_kernel.ssd_scan_cuda(*args)
+    y_ref, h_ref = ssd_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", ssd_kernel.SHAPES)
+def test_ssd_kernel_tile_invariance_every_plan(cuda, P, N):
+    """Tiles of 1, 16 and 77 steps, and 4-byte copies of unaligned rows of
+    xh, B and C, give the same bits at every plan."""
+    args = _ssd_inputs(2, 77, 3, P, N, seed=P + N + 1)
+    outs = [ssd_kernel.ssd_scan_cuda(*args, chunk=c) for c in (1, 16, 77)]
+    xh, dt, A, B, C = args
+    outs.append(ssd_kernel.ssd_scan_cuda(_offset_copy(xh), dt, A, _offset_copy(B),
+                                         _offset_copy(C)))
     torch.cuda.synchronize()
     for y, h in outs[1:]:
         assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])

@@ -182,7 +182,7 @@ def test_wrapper_refuses_bad_shapes_and_chunk():
     with pytest.raises(ValueError, match="state"):
         kernel.wkv6_cuda(*t[:5], t[5][:, :1])
     with pytest.raises(ValueError, match="chunk"):
-        kernel.wkv6_cuda(*t, chunk=kernel.TILE_FLOATS // 16 + 1)
+        kernel.wkv6_cuda(*t, chunk=kernel.max_chunk(16) + 1)
     with pytest.raises(ValueError, match="empty"):
         kernel.wkv6_cuda(*(a[:, :0] for a in t[:4]), *t[4:])
 
@@ -192,6 +192,80 @@ def test_source_is_listed():
     text = kernel.SOURCE.read_text()
     assert "src/repro/kernels/rwkv6/kernel.py:57" in text
     assert 'extern "C" int wkv6_fwd' in text
+    assert f"constexpr int STAGES = {kernel.STAGES};" in text  # the ring smem_bytes counts
+    for P in kernel.HEAD_SIZES:
+        for pc, r, cpt in kernel.PLANS[P]:
+            assert f"WKV_CASE({P}, {r}, {pc}, {cpt})" in text
+
+
+# (b, H, P): the rwkv6-7b prefill and decode steps, the engine's decode lane,
+# and every instantiated head size at the TestWKV6 shapes
+PLAN_SHAPES = [(4, 64, 64), (1, 64, 64), (2, 64, 64), (1, 2, 8), (1, 2, 16), (2, 3, 32),
+               (2, 4, 64)]
+
+
+@pytest.mark.parametrize("b,H,P", PLAN_SHAPES)
+def test_plan_for_every_shape(b, H, P):
+    """Columns split over P / pc blocks a (batch, head) and into groups of CPT
+    a thread, rows into float4 groups over R threads; whole warps or one
+    part warp of at least eight lanes (the r.u.k sums take eight lanes a
+    step); at least WIDE_GRID blocks wherever the column split can reach
+    them; the ring fits shared memory at the longest legal tile."""
+    pl = kernel.plan(b, 100, H, P)
+    pc, r, cpt = pl["pc"], pl["r"], pl["cpt"]
+    assert P % pc == 0 and pl["blocks_per_head"] == P // pc
+    assert pc % 4 == 0 and pc % cpt == 0 and P % (4 * r) == 0 and cpt in (1, 2, 4)
+    assert pl["threads"] == pc // cpt * r and pl["threads"] % 8 == 0
+    assert pl["threads"] < 32 or pl["threads"] % 32 == 0
+    assert pl["chunk"] == kernel.DEFAULT_CHUNK
+    if P == 64:
+        assert b * H * pl["blocks_per_head"] >= min(kernel.WIDE_GRID, 4 * b * H)
+    longest = kernel.plan(b, 10**6, H, P, chunk=kernel.max_chunk(P))
+    assert longest["smem_bytes"] <= kernel.MAX_SMEM
+    assert kernel.smem_bytes(P, pc, kernel.max_chunk(P) + 1) > kernel.MAX_SMEM \
+        or pc < max(p[0] for p in kernel.PLANS[P])
+
+
+def test_plan_at_prefill_and_decode_shapes():
+    """rwkv6-7b prefill (b 4, s 1024, H 64, P 64): 256 blocks of all 64
+    columns (each stages the head's r, k and w once), four threads a
+    column, four columns a thread (64 threads), two slots of 48 steps in
+    98,752 bytes (two blocks an SM); the decode step (b 1, s 1): 16 columns
+    a block, 256 blocks of 32 threads (64 blocks before the column split),
+    no ring and no shared memory."""
+    pre = kernel.plan(4, 1024, 64, 64)
+    assert (pre["pc"], pre["r"], pre["cpt"], kernel.STAGES, pre["chunk"]) == (64, 4, 4, 2, 48)
+    assert pre["threads"] == 64 and 4 * 64 * pre["blocks_per_head"] == 256
+    assert pre["smem_bytes"] == 98752 and 2 * (98752 + 1024) <= 228 * 1024
+    dec = kernel.plan(1, 1, 64, 64)
+    assert (dec["pc"], dec["r"], dec["cpt"], dec["chunk"]) == (16, 2, 1, 1)
+    assert dec["threads"] == 32 and 64 * dec["blocks_per_head"] == 256
+    assert pre["ring"] and not dec["ring"] and dec["smem_bytes"] == 0
+
+
+def test_chunk_range():
+    """``chunk`` is legal from 1 to the longest tile whose ring fits shared
+    memory at the larger plan of the head size; the tiles the checks use (8 and 32 at P = 16)
+    stay legal, and the tile is the chunk cut to the sequence."""
+    assert [kernel.max_chunk(P) for P in (8, 16, 32, 64)] == [1019, 514, 258, 113]
+    for c in (1, 8, 32, 343):
+        kernel.plan(1, 64, 2, 16, c)
+    assert kernel.plan(1, 10, 2, 16, 32)["chunk"] == 10
+    for c in (0, 114):
+        with pytest.raises(ValueError, match="chunk"):
+            kernel.plan(4, 1024, 64, 64, c)
+
+
+def test_bound_at_decode_shape():
+    """The decode step's bound chip_smoke.py reports (b 1, s 1, H 64, P 64):
+    the state read and written once dominates, 2.20 MB at the HBM rate."""
+    from repro_torch import hw
+
+    b, s, H, P = 1, 1, 64, 64
+    n_bytes = 4 * (5 * b * s * H * P + H * P + 2 * b * H * P * P)
+    t, by = hw.bound_seconds(n_bytes, 5 * b * s * H * P * P, hw.FP32_FLOPS)
+    assert by == "bytes" and n_bytes == 2_195_456
+    assert abs(t - 6.554e-7) < 1e-10
 
 
 def test_bound_at_prefill_shape():

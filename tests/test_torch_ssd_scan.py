@@ -155,7 +155,7 @@ def test_wrapper_refuses_bad_shapes_and_chunk():
     with pytest.raises(ValueError, match="want dt"):
         kernel.ssd_scan_cuda(*t[:4], t[4][..., :4])
     with pytest.raises(ValueError, match="chunk"):
-        kernel.ssd_scan_cuda(*t, chunk=kernel.TILE_FLOATS // (16 + 2 * 8 + 1) + 1)
+        kernel.ssd_scan_cuda(*t, chunk=kernel.max_chunk(16, 8) + 1)
     with pytest.raises(ValueError, match="chunk"):
         kernel.ssd_scan_cuda(*t, chunk=0)
     with pytest.raises(ValueError, match="empty"):
@@ -164,7 +164,61 @@ def test_wrapper_refuses_bad_shapes_and_chunk():
 
 def test_default_chunk_is_legal_for_every_shape():
     for P, N in kernel.SHAPES:
-        assert kernel.DEFAULT_CHUNK * (P + 2 * N + 1) <= kernel.TILE_FLOATS
+        assert 1 <= kernel.DEFAULT_CHUNK <= kernel.max_chunk(P, N)
+        assert kernel.plan(P, N, 1024)["smem_bytes"] <= kernel.MAX_SMEM
+
+
+@pytest.mark.parametrize("P,N", kernel.SHAPES)
+def test_plan_for_every_shape(P, N):
+    """Every instantiated (P, N) splits its columns over two blocks, its N
+    rows into float4 groups over R threads and its columns into groups of
+    CPT a thread; a block is under one warp or whole warps (the shuffles'
+    mask), and the ring fits shared memory at the longest legal tile."""
+    pl = kernel.plan(P, N, 100)
+    pc, r, cpt = pl["pc"], pl["r"], pl["cpt"]
+    assert P % pc == 0 and pl["blocks_per_head"] == P // pc == 2
+    assert pc % 4 == 0 and pc % cpt == 0 and N % (4 * r) == 0 and cpt in (1, 2)
+    assert pl["threads"] == pc // cpt * r
+    assert pl["threads"] < 32 or pl["threads"] % 32 == 0
+    assert pl["chunk"] == kernel.DEFAULT_CHUNK
+    longest = kernel.plan(P, N, 10**6, chunk=kernel.max_chunk(P, N))
+    assert longest["smem_bytes"] <= kernel.MAX_SMEM
+    over = kernel.smem_bytes(N, pc, pl["threads"], kernel.max_chunk(P, N) + 1)
+    assert over > kernel.MAX_SMEM
+
+
+def test_plan_at_prefill_shape():
+    """zamba2-7b (b 4, s 1024, H 112, P 64, N 64): 32 columns a block, two
+    threads a column (32 rows each) and two columns a thread, so 896 blocks
+    of 32 threads; two slots of 24 steps take 31,008 bytes, so seven
+    blocks fit an SM (228 KB, 1 KB reserved a block) and the grid is one
+    wave on 132 SMs."""
+    pl = kernel.plan(64, 64, 1024)
+    assert (pl["pc"], pl["r"], pl["cpt"], kernel.STAGES, pl["chunk"]) == (32, 2, 2, 2, 24)
+    assert pl["threads"] == 32 and 4 * 112 * pl["blocks_per_head"] == 896
+    assert pl["smem_bytes"] == 31008
+    assert 7 * (pl["smem_bytes"] + 1024) <= 228 * 1024 and 896 <= 7 * 132
+
+
+@pytest.mark.parametrize("P,N,s,chunk,tile", [
+    (64, 64, 1024, None, 24), (64, 64, 100, 42, 42), (64, 64, 10, 32, 10), (64, 64, 1, None, 1),
+    (16, 8, 64, 64, 64), (8, 4, 5, 1, 1)])
+def test_plan_tile_is_the_chunk_cut_to_the_sequence(P, N, s, chunk, tile):
+    assert kernel.plan(P, N, s, chunk)["chunk"] == tile
+
+
+def test_chunk_range():
+    """``chunk`` is legal from 1 to the longest tile whose ring fits shared
+    memory; the tiles the checks use (8, 32, 42 at P = N = 64; 16, 32, 64 at
+    the TestSSDScan shape) stay legal."""
+    assert kernel.max_chunk(64, 64) == 179
+    for c in (1, 8, 32, 42, 179):
+        kernel.plan(64, 64, 100, c)
+    for c in (16, 32, 64):
+        kernel.plan(16, 8, 100, c)
+    for c in (0, -1, 180):
+        with pytest.raises(ValueError, match="chunk"):
+            kernel.plan(64, 64, 100, c)
 
 
 def test_source_is_listed():
@@ -172,8 +226,9 @@ def test_source_is_listed():
     text = kernel.SOURCE.read_text()
     assert "src/repro/kernels/ssd_scan/kernel.py:78" in text
     assert 'extern "C" int ssd_scan_fwd' in text
-    for P, N in kernel.SHAPES:
-        assert f"SSD_CASE({P}, {N})" in text
+    assert f"constexpr int STAGES = {kernel.STAGES};" in text  # the ring smem_bytes counts
+    for (P, N), (pc, r, cpt) in kernel.PLANS.items():
+        assert f"SSD_CASE({N}, {r}, {pc}, {cpt})" in text
 
 
 def test_bound_at_prefill_shape():
