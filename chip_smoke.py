@@ -15,18 +15,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    GEMM bit for bit, w row-major and column-major, at the TestGemmInt8
    inputs and at few-block long-K shapes that split K, and the int32 wrap
    at K = 2^17);
-3. three main paths at full width, fp32, random weights from a seed, one
+3. six main paths at full width, fp32, random weights from a seed, one
    after the other (each one's weights are freed before the next):
    qwen3-0.6b (28 layers, the flash-attention kernel), rwkv6-7b (32 layers,
-   7.57 B params, the wkv6 kernel) and zamba2-7b (81 mamba layers and 13
+   7.57 B params, the wkv6 kernel), zamba2-7b (81 mamba layers and 13
    occurrences of 2 shared attention blocks, 6.95 B params, the SSD-scan and
-   flash-attention kernels). Each runs
-   a. prefill: 4 prompts x 1024 tokens through ``make_prefill``;
+   flash-attention kernels), dbrx-132b (MoE, 16 experts top-4; depth cut
+   to 4 of 40 layers to fit the card), internvl2-76b (a 256-embedding patch
+   prefix at prefill; depth cut to 8 of 80 layers) and musicgen-large (frame
+   embeddings, MHA at hd 64; 48 layers, depth not cut), each of the last
+   three through flash attention. Each runs
+   a. prefill: 4 prompts x 1024 tokens (or frames) through ``make_prefill``
+      (internvl2: with the patch prefix, which must change the logits);
    b. consistency: one 32-token prompt decoded token by token through
       ``make_serve_step`` reproduces the prefill logits (and the same prompt
       prefilled in a batch of 4 shows how far the forward agrees with
-      itself);
-   c. serving: ``ServingEngine`` (4 slots) drains 8 requests;
+      itself). dbrx drops (token, k) pairs at capacity in prefill and never
+      in decode, so it is held to its prefill on a 4-token prompt (one
+      dispatch group no longer than the capacity floor 4) and its 32-token
+      prompt is reported, dropped pairs and all;
+   c. serving: ``ServingEngine`` (4 slots) drains 8 requests (not for
+      musicgen: the engine takes tokens only, as JAX's does);
    d. with ``--profile`` only: where the time goes, from ``torch.profiler``
       windows over one prefill and over one-lane decode steps;
 4. the paper's INT8 PU GEMM on ResNet-50's own GEMMs: the 54 GEMM nodes of
@@ -39,7 +48,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    window), against the plain forward on the same tokens at 2e-3, its token
    operations equal to what the programs prescribe;
 6. timing: each kernel, its plain version and the PyTorch library call (where
-   one exists) at its main-path shapes (flash attention at three, wkv6 at the
+   one exists) at its main-path shapes (flash attention at four, wkv6 at the
    prefill and at the decode step), beside the card's bound; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
@@ -57,11 +66,13 @@ no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -71,17 +82,31 @@ SEED = 0
 ARCH = "qwen3-0.6b"
 RWKV_ARCH = "rwkv6-7b"
 ZAMBA_ARCH = "zamba2-7b"
+MOE_ARCH, VLM_ARCH, AUDIO_ARCH = "dbrx-132b", "internvl2-76b", "musicgen-large"
+# depth cuts, full width: fp32 dbrx-132b takes 13.0 GB a layer (16 experts of
+# 3 x 6144 x 10752) + 4.9 GB of embedding and head, internvl2-76b 3.42 GB a
+# layer + 8.7 GB; 4 and 8 layers leave room for the activations in 80 GB
+DEPTH = {MOE_ARCH: 4, VLM_ARCH: 8}
 # launches of each kernel per prefill call and per decode step, by path:
 # qwen3-0.6b has 28 attention layers; rwkv6-7b 32 rwkv layers, whose decode
 # runs the wkv6 kernel too; zamba2-7b 81 mamba layers (SSD scan) and 13
-# shared-attention occurrences, and its decode is plain tensor code
+# shared-attention occurrences, and its decode is plain tensor code; dbrx-132b
+# and internvl2-76b an attention layer each of their 4 and 8, musicgen-large
+# 48; their decode is plain tensor code
 PATHS = [
     (ARCH, {"flash_attention": 28}, {}),
     (RWKV_ARCH, {"wkv6": 32}, {"wkv6": 32}),
     (ZAMBA_ARCH, {"ssd_scan": 81, "flash_attention": 13}, {}),
+    (MOE_ARCH, {"flash_attention": DEPTH[MOE_ARCH]}, {}),
+    (VLM_ARCH, {"flash_attention": DEPTH[VLM_ARCH]}, {}),
+    (AUDIO_ARCH, {"flash_attention": 48}, {}),
 ]
 PREFILL_BATCH, PREFILL_LEN, PREFILL_ITERS = 4, 1024, 3
 CONSISTENCY_LEN = 32
+# dbrx-132b's consistency prompt: 4 tokens are one dispatch group whose
+# capacity is the floor 4, so prefill can drop no pair, as decode never does
+MOE_SHORT_LEN = 4
+FRAME_SCALE = 0.02  # frame and patch embeddings ~ 0.02 N(0, 1), tests/test_models.py:14-23
 SLOTS, MAX_LEN, REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 256, 8, 16, 16
 # the engine decodes each prompt token once, then re-feeds the last one as
 # the first of NEW_TOKENS generating steps
@@ -350,10 +375,11 @@ def profile_window(fn, wall_ms: float) -> dict:
     return summ
 
 
-def profile_phase(cfg, params, prefill, batch, step, init_cache, rng, report) -> None:
+def profile_phase(cfg, params, prefill, batch, step, init_cache, step_input, report) -> None:
     """Wall time without the profiler (CUDA events for prefill, host clock
     around synchronised steps for decode), then a profiler window over the
-    same work (``profile_window``)."""
+    same work (``profile_window``). ``step_input(pos)`` is decode step
+    ``pos``'s batch."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     prefill(params, batch)
@@ -364,13 +390,12 @@ def profile_phase(cfg, params, prefill, batch, step, init_cache, rng, report) ->
 
     # one lane (what ServingEngine._step_slot runs); the engine reads each token
     cache = init_cache(cfg, 1, DECODE_LEN, dtype=torch.float32)
-    toks = [int(x) for x in rng.integers(0, cfg.vocab_size, DECODE_WARM + 3 * DECODE_STEPS)]
     pos = 0
 
     def steps(n: int) -> None:
         nonlocal pos
         for _ in range(n):
-            lg, _ = step(params, cache, {"tokens": [[toks[pos]]]}, pos)
+            lg, _ = step(params, cache, step_input(pos), pos)
             int(torch.argmax(lg[0, -1]))
             pos += 1
 
@@ -393,22 +418,28 @@ def _per_call(counts: dict, calls: int, what: str) -> list:
 
 
 def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
-    """One model's serving path at full width: prefill, consistency, serving
-    (and with ``profile`` the profiler windows). ``per_prefill`` and
-    ``per_decode`` give each of the path's kernels' launches per prefill call
-    and per decode step; every launch count in ``kernel_mods`` is set to 0
-    just before the prefill and read just after serving, and must equal what
-    they give (0 for a kernel they do not name). Returns the counts, and each
-    kernel's launches split into prefill calls (those at the full prefill
-    shape apart) and decode steps, each read from the counts on the path:
-    after the full-shape prefills, after the last prefill call (before the
-    first decode step, and checked there too) and after serving."""
+    """One model's serving path at full width (depth cut where DEPTH says):
+    prefill, consistency, serving (and with ``profile`` the profiler
+    windows). ``per_prefill`` and ``per_decode`` give each of the path's
+    kernels' launches per prefill call and per decode step; every launch
+    count in ``kernel_mods`` is set to 0 just before the prefill and read
+    just after serving, and must equal what they give (0 for a kernel they
+    do not name). Returns the counts, and each kernel's launches split into
+    prefill calls (those at the full prefill shape apart) and decode steps,
+    each read from the counts on the path: after the full-shape prefills,
+    after the last prefill call (before the first decode step, and checked
+    there too) and after serving."""
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tf
     from repro_torch.runtime.serve import ServingEngine, make_prefill, make_serve_step
 
     cfg = get_config(arch)
+    if arch in DEPTH:
+        cfg = replace(cfg, num_layers=DEPTH[arch])
     rwkv = cfg.family == "ssm"
+    is_moe = cfg.family == "moe"
+    frames = cfg.frontend == "frame_embed"
     torch.cuda.reset_peak_memory_stats()
     params = tf.init_params(cfg, seed=SEED, dtype=torch.float32)
     n_params = sum(p.numel() for p in _leaves(params))
@@ -420,11 +451,27 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
         shape = (f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
                  f"d_inner {cfg.d_inner}; {cfg.n_shared_attn} shared attention blocks of "
                  f"{attn_shape}, d_ff {cfg.d_ff}")
+    elif is_moe:
+        gl = min(cfg.moe_group, PREFILL_BATCH * PREFILL_LEN)
+        shape = (f"{attn_shape}; {cfg.n_experts} {cfg.mlp} experts of d_ff {cfg.d_ff}, top-"
+                 f"{cfg.top_k}, dispatch groups of {gl} tokens at prefill, capacity "
+                 f"{moe._capacity(cfg, gl)}")
     else:
         shape = attn_shape
-    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {shape}, vocab "
+        if cfg.frontend != "tokens":
+            shape += (f", d_ff {cfg.d_ff} {cfg.mlp}, "
+                      + ("frame embeddings in" if frames else
+                         f"a {cfg.n_prefix_embeds}-embedding patch prefix at prefill"))
+    depth = (f"{cfg.num_layers} of {get_config(arch).num_layers} layers (depth cut)"
+             if arch in DEPTH else f"{cfg.num_layers} layers")
+    print(f"{arch}: {depth}, d_model {cfg.d_model}, {shape}, vocab "
           f"{cfg.vocab_size}, {n_params / 1e6:.1f}M params fp32 on "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    def embeds(*shape) -> torch.Tensor:
+        return torch.as_tensor(FRAME_SCALE * rng.standard_normal((*shape, cfg.d_model),
+                                                                 dtype=np.float32),
+                               device="cuda")
 
     # ------------------------------------------------------------- prefill --
     for mod in kernel_mods.values():
@@ -432,8 +479,13 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     decode_steps = 0
     prefill = make_prefill(cfg)
     rng = np.random.default_rng(SEED)
-    tokens = rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))
-    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    if frames:
+        batch = {"frame_embeds": embeds(PREFILL_BATCH, PREFILL_LEN)}
+    else:
+        tokens = rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))
+        batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+        if cfg.frontend == "patch_embed":
+            batch["patch_embeds"] = embeds(PREFILL_BATCH, cfg.n_prefix_embeds)
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     prefill_calls = 1
@@ -441,6 +493,18 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
         raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite")
+    if "patch_embeds" in batch:  # the twin of tests/test_models.py:116
+        P = cfg.n_prefix_embeds
+        diff = (logits - prefill(params, {"tokens": batch["tokens"]})).abs().amax((0, 2))
+        prefill_calls += 1
+        if not (diff[:P].max().item() > 1e-4 and diff[P:].max().item() > 1e-4):
+            raise AssertionError(f"the patch prefix does not change the logits: max |diff| "
+                                 f"{diff[:P].max().item():.3e} at the prefix's positions, "
+                                 f"{diff[P:].max().item():.3e} after them")
+        report(f"{arch} patch prefix: prefill with vs without the {P} patch embeddings, max "
+               f"|logit diff| {diff[:P].max().item():.3e} at the prefix's positions, "
+               f"{diff[P:].max().item():.3e} after them (want > 1e-4 at both)")
+        del diff
     del logits
     prefill_ms = cuda_ms(lambda: prefill(params, batch), PREFILL_ITERS, warmup=1)
     prefill_calls += 1 + PREFILL_ITERS
@@ -456,28 +520,45 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
            f"{', '.join(_per_call(per_prefill, prefill_calls, 'calls'))}")
 
     # --------------------------------------------------------- consistency --
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, CONSISTENCY_LEN)),
-                             device="cuda")
-    full = prefill(params, {"tokens": prompt})[0]
+    key = "frame_embeds" if frames else "tokens"
+
+    def draw(b: int) -> torch.Tensor:
+        if frames:
+            return embeds(b, CONSISTENCY_LEN)
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, CONSISTENCY_LEN)),
+                               device="cuda")
+
+    prompt = draw(1)
+    if is_moe:  # the forward itself, for its count of dropped pairs
+        with torch.inference_mode():
+            full, aux = tf.forward(cfg, params, {key: prompt})
+        full, dropped = full[0], int(aux["moe_dropped"])
+    else:
+        full = prefill(params, {key: prompt})[0]
     # the same prompt as row 0 of a batch of 4: how far the forward agrees
     # with itself when only the GEMMs' shapes (and so their order of sums) change
-    others = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, CONSISTENCY_LEN)),
-                             device="cuda")
-    batched = prefill(params, {"tokens": torch.cat([prompt, others])})[0]
+    others = draw(3)
+    batched = prefill(params, {key: torch.cat([prompt, others])})[0]
     prefill_calls += 2
+    if is_moe:
+        short = prompt[:, :MOE_SHORT_LEN]
+        short_full = prefill(params, {key: short})[0]
+        prefill_calls += 1
     # every prefill call has run and no decode step yet: the prefill launches
     at_prefill = {name: mod.launches for name, mod in kernel_mods.items()}
     want = {name: per_prefill.get(name, 0) * prefill_calls for name in kernel_mods}
     if at_prefill != want:
         raise AssertionError(f"{arch} prefill calls launched {at_prefill}, want {want}")
     step = make_serve_step(cfg)
-    cache = tf.init_cache(cfg, 1, CONSISTENCY_LEN, dtype=torch.float32)
-    dec = []
-    for t in range(CONSISTENCY_LEN):
-        lg, cache = step(params, cache, {"tokens": prompt[:, t:t + 1]}, t)
-        dec.append(lg[0, 0])
+
+    def decode(inputs: torch.Tensor) -> torch.Tensor:
+        n = inputs.shape[1]
+        cache = tf.init_cache(cfg, 1, n, dtype=torch.float32)
+        out = [step(params, cache, {key: inputs[:, t:t + 1]}, t)[0][0, 0] for t in range(n)]
+        return torch.stack(out)
+
+    dec = decode(prompt)
     decode_steps += CONSISTENCY_LEN
-    dec = torch.stack(dec)
     torch.cuda.synchronize()
     diff = (dec - full).abs().max().item()
     same_top1 = int((dec.argmax(-1) == full.argmax(-1)).sum())
@@ -497,6 +578,26 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
         criterion = (f"max |softmax diff| {prob_diff:.3e} (tol {SSM_PROB_TOL}); {rebatched}; "
                      f"held to "
                      f"{'argmax equal everywhere' if as_reference else 'that re-batching noise'}")
+    elif is_moe:
+        dec_short = decode(short)
+        decode_steps += MOE_SHORT_LEN
+        short_diff = (dec_short - short_full).abs().max().item()
+        if not torch.allclose(dec_short, short_full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL):
+            raise AssertionError(
+                f"decode vs prefill on the {MOE_SHORT_LEN}-token prompt: max |diff| "
+                f"{short_diff:.3e} beyond rtol=atol={CONSISTENCY_TOL}")
+        within = torch.isclose(dec, full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL).all(-1)
+        criterion = (f"not gated: the prefill dropped {dropped} (token, k) pairs of "
+                     f"{CONSISTENCY_LEN * cfg.top_k * cfg.num_layers} at capacity "
+                     f"{moe._capacity(cfg, CONSISTENCY_LEN)}, decode none; positions within "
+                     f"rtol=atol={CONSISTENCY_TOL}: {int(within.sum())}/{CONSISTENCY_LEN}; "
+                     f"{rebatched}")
+        report(f"{arch} consistency: decode vs prefill over the first {MOE_SHORT_LEN} tokens "
+               f"(one dispatch group of {MOE_SHORT_LEN}, capacity "
+               f"{moe._capacity(cfg, MOE_SHORT_LEN)}: no pair can drop), max |diff| "
+               f"{short_diff:.3e} (rtol=atol={CONSISTENCY_TOL}), max |logit| "
+               f"{short_full.abs().max().item():.1f}")
+        del dec_short, short_full
     else:
         if not torch.allclose(dec, full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL):
             raise AssertionError(
@@ -507,28 +608,33 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     report(f"{arch} consistency: decode vs prefill over {CONSISTENCY_LEN} positions, max "
            f"|diff| {diff:.3e}, max |logit| {full.abs().max().item():.1f} ({criterion}); "
            f"argmax equal at {same_top1}/{CONSISTENCY_LEN}; max |diff| by position: {by_pos}")
-    del cache, full, batched
+    del full, batched
 
     # ------------------------------------------------------------- serving --
-    eng = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN)
-    for _ in range(REQUESTS):
-        eng.submit([int(x) for x in rng.integers(1, cfg.vocab_size, PROMPT_LEN)],
-                   max_new_tokens=NEW_TOKENS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    decode_steps += ENGINE_STEPS
-    n_tok = sum(len(r.generated) for r in done)
-    if len(done) != REQUESTS or any(len(r.generated) != NEW_TOKENS for r in done):
-        raise AssertionError(f"engine finished {len(done)} requests: "
-                             f"{[len(r.generated) for r in done]}")
-    if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
-        raise AssertionError("engine produced a token outside the vocabulary")
-    report(f"{arch} serving: {len(done)} requests, {n_tok} new tokens ({ENGINE_STEPS} decode "
-           f"steps with prompts) in {serve_s:.3f} s, {n_tok / serve_s:.1f} new tokens/s, "
-           f"{serve_s / ENGINE_STEPS * 1e3:.1f} ms per step")
+    if not frames:  # the engine takes tokens, as JAX's does
+        eng = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN)
+        for _ in range(REQUESTS):
+            eng.submit([int(x) for x in rng.integers(1, cfg.vocab_size, PROMPT_LEN)],
+                       max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        decode_steps += ENGINE_STEPS
+        n_tok = sum(len(r.generated) for r in done)
+        if len(done) != REQUESTS or any(len(r.generated) != NEW_TOKENS for r in done):
+            raise AssertionError(f"engine finished {len(done)} requests: "
+                                 f"{[len(r.generated) for r in done]}")
+        if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
+            raise AssertionError("engine produced a token outside the vocabulary")
+        lanes = (f"every lane decoded each step, as JAX's engine does at MoE layers"
+                 if is_moe else "one lane a step")
+        report(f"{arch} serving: {len(done)} requests, {n_tok} new tokens ({ENGINE_STEPS} "
+               f"decode steps with prompts, {lanes}) in {serve_s:.3f} s, "
+               f"{n_tok / serve_s:.1f} new tokens/s, {serve_s / ENGINE_STEPS * 1e3:.1f} ms "
+               f"per step")
+        del eng
     launches = {name: mod.launches for name, mod in kernel_mods.items()}
     want = {name: per_prefill.get(name, 0) * prefill_calls
             + per_decode.get(name, 0) * decode_steps for name in kernel_mods}
@@ -537,10 +643,16 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     if launches != want:
         raise AssertionError(f"{arch} main path launched {launches}, want {want} ({how})")
     report(f"{arch} launches on the main path: {json.dumps(launches)} = {how}")
-    del eng
 
     if profile:
-        profile_phase(cfg, params, prefill, batch, step, tf.init_cache, rng, report)
+        if frames:
+            steps = embeds(1, DECODE_WARM + 3 * DECODE_STEPS)
+            step_input = lambda pos: {key: steps[:, pos:pos + 1]}  # noqa: E731
+        else:
+            toks = [int(x) for x in rng.integers(0, cfg.vocab_size,
+                                                 DECODE_WARM + 3 * DECODE_STEPS)]
+            step_input = lambda pos: {key: [[toks[pos]]]}  # noqa: E731
+        profile_phase(cfg, params, prefill, batch, step, tf.init_cache, step_input, report)
     # each count read on the path: after the full-shape prefills, after every
     # prefill call (before the first decode step) and after serving
     split = {name: {"prefill": at_prefill[name], "prefill_full_shape": full_shape[name],
@@ -550,8 +662,9 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
 
 def check_flash_attention(fa_kernel, mha_reference, report) -> float:
     """The flash-attention kernel against its plain version; returns the
-    largest error at the shapes the paths run in fp32 (the qwen3-0.6b and
-    zamba2-7b prefills, the h2o-danube-3-4b pipeline)."""
+    largest error at the shapes the paths run in fp32 (the qwen3-0.6b,
+    zamba2-7b, dbrx-132b, internvl2-76b and musicgen-large prefills, the
+    h2o-danube-3-4b pipeline)."""
     # (b, s, H, G, hd, window, dtype, tol, label): tests/test_kernels.py:28-85
     # shapes and tolerances, head dims 112 (zamba2-7b's shared blocks: MHA,
     # 32 heads) and 120 (h2o-danube-3-4b, windowed), plus the prefills'
@@ -582,6 +695,13 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         (PREFILL_BATCH, PREFILL_LEN, 32, 32, 112, None, torch.float32, 1e-4,
          "zamba2 prefill fp32"),
         (PIPE_MB, PIPE_LEN, 32, 8, 120, 4096, torch.float32, 1e-4, "h2o pipeline fp32"),
+        # the dbrx-132b, internvl2-76b and musicgen-large prefills (MHA at hd 64)
+        (PREFILL_BATCH, PREFILL_LEN, 48, 8, 128, None, torch.float32, 1e-4,
+         "dbrx prefill fp32"),
+        (PREFILL_BATCH, PREFILL_LEN, 64, 8, 128, None, torch.float32, 1e-4,
+         "internvl2 prefill fp32"),
+        (PREFILL_BATCH, PREFILL_LEN, 32, 32, 64, None, torch.float32, 1e-4,
+         "musicgen prefill fp32"),
         # the kernel's tiles (256 q rows and 32 kv rows; 64 and 16 at hd 256):
         # s a multiple of neither, windows whose left edge falls mid-tile at
         # hd 112 and 120, hd 16 and 256 at ragged s, bf16 at hd 112 ragged
@@ -1292,15 +1412,16 @@ def main() -> int:
     kernel_mods = {"flash_attention": fa_kernel, "wkv6": wkv6_kernel, "ssd_scan": ssd_kernel,
                    "gemm_int8": gemm_kernel}
     launches = {name: 0 for name in kernel_mods}
-    split = {}
+    split, by_path = {}, {}
     for arch, per_prefill, per_decode in PATHS:
-        path, split[arch] = drive_path(arch, kernel_mods, per_prefill, per_decode, report,
-                                       args.profile)
-        launches = {name: launches[name] + path[name] for name in kernel_mods}
-        torch.cuda.empty_cache()  # the path's weights are gone; hand their memory back
-    for drive in (drive_resnet50, drive_pipeline):
-        path = drive(kernel_mods, report, args.profile)
-        launches = {name: launches[name] + path[name] for name in kernel_mods}
+        by_path[arch], split[arch] = drive_path(arch, kernel_mods, per_prefill, per_decode,
+                                                report, args.profile)
+        launches = {name: launches[name] + by_path[arch][name] for name in kernel_mods}
+        gc.collect()  # the path's weights are gone; hand their memory back
+        torch.cuda.empty_cache()
+    for label, drive in (("resnet50", drive_resnet50), (f"{PIPE_ARCH} pipeline", drive_pipeline)):
+        by_path[label] = drive(kernel_mods, report, args.profile)
+        launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
         torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- timing --
@@ -1308,7 +1429,8 @@ def main() -> int:
     zcfg = get_config(ZAMBA_ARCH)
     fa_shapes = []
     for label, arch, bb, ss in ((ARCH, ARCH, b, s), (ZAMBA_ARCH, ZAMBA_ARCH, b, s),
-                                (f"{PIPE_ARCH} pipeline", PIPE_ARCH, PIPE_MB, PIPE_LEN)):
+                                (f"{PIPE_ARCH} pipeline", PIPE_ARCH, PIPE_MB, PIPE_LEN),
+                                (AUDIO_ARCH, AUDIO_ARCH, b, s)):
         c = get_config(arch)
         window = c.window if c.attn == "swa" else None  # as the model's plan sets it
         fa_shapes.append(time_flash(fa_kernel, hw, label, bb, ss, c.num_heads, c.num_kv_heads,
@@ -1323,6 +1445,9 @@ def main() -> int:
               **{key: fa_shapes[0][key] for key in (
                   "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_cuda_ms",
                   "library_ms", "library", "timed")},
+              "launches_by_path": {label: counts["flash_attention"]
+                                   for label, counts in by_path.items()
+                                   if counts["flash_attention"]},
               "shapes": fa_shapes}
 
     rcfg = get_config(RWKV_ARCH)

@@ -80,6 +80,12 @@ def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, length: int, dtype
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_slot(pos: int, cache_len: int, local: bool) -> int:
+    """The cache slot a decode step at ``pos`` writes: the ring-buffer slot
+    for windowed layers, the plain one (the last, past the end) otherwise."""
+    return pos % cache_len if local else min(pos, cache_len - 1)
+
+
 def decode_attention(
     p: dict,
     cfg: ArchConfig,
@@ -96,8 +102,7 @@ def decode_attention(
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)  # q:(b,1,H,hd) k/v:(b,1,G,hd)
 
-    # ring-buffer slot for windowed layers; plain slot otherwise
-    slot = pos % cache_len if local else min(pos, cache_len - 1)
+    slot = cache_slot(pos, cache_len, local)
     ck[:, slot] = k[:, 0]
     cv[:, slot] = v[:, 0]
 

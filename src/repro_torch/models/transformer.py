@@ -1,17 +1,22 @@
-"""LM assembly for the port: builds the ``dense``, ``rwkv``, ``mamba`` and
-``shared_attn`` block kinds from an ArchConfig, in the JAX package's
-parameter layout.
+"""LM assembly for the port: builds every architecture of the zoo from its
+ArchConfig, in the JAX package's parameter layout.
 
 A model is a sequence of blocks; each block stacks ``n`` layers of one kind
 along a leading layer axis (``params["blocks"][i]``), as in
-``repro.models.transformer``. The port has the ``dense`` kind (pre-norm GQA
-attention + pre-norm MLP, full or windowed attention), the ``rwkv`` kind
-(RWKV6 time-mix + channel-mix), the ``mamba`` kind (Mamba2 SSD) and the
-``shared_attn`` kind of zamba2 (a dense layer whose params, unstacked, live
-in ``params["shared"]`` and are shared by its occurrences, each of which has
-its own KV cache; its ``params["blocks"]`` entry is ``{}``). The ``moe`` kind
-and the other frontends raise ``NotImplementedError`` naming their ROADMAP
-item.
+``repro.models.transformer``:
+
+  dense        pre-norm GQA attention + pre-norm MLP (full or windowed)
+  moe          pre-norm GQA attention + pre-norm MoE FFN
+  rwkv         RWKV6 time-mix + channel-mix
+  mamba        Mamba2 (SSD) block
+  shared_attn  zamba2's shared dense layer: its params, unstacked, live in
+               ``params["shared"]`` and are shared by its occurrences, each
+               with its own KV cache; its ``params["blocks"]`` entry is ``{}``
+
+The input frontend is the config's: ``tokens``; ``patch_embed`` (tokens, with
+``batch["patch_embeds"]`` projected by ``params["patch_proj"]`` over the
+first positions at prefill); ``frame_embed`` (``batch["frame_embeds"]`` is
+the input).
 
 API:
   init_params(cfg, seed, dtype, device)          -> params
@@ -31,11 +36,8 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
-from . import rwkv, ssm
+from . import moe, rwkv, ssm
 from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
-
-_PORTED_KINDS = ("dense", "rwkv", "mamba", "shared_attn")
-_ROADMAP_ITEM = {"moe": "ROADMAP queue 1 item 8 (models/moe.py)"}
 
 
 @dataclass(frozen=True)
@@ -78,18 +80,6 @@ def layer_plan(cfg: ArchConfig) -> list[BlockSpec]:
     return [BlockSpec(kind, L, local=(cfg.attn == "swa"))]
 
 
-def _check_ported(cfg: ArchConfig) -> list[BlockSpec]:
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is ROADMAP queue 1 item 10 (frontends)")
-    plan = layer_plan(cfg)
-    for blk in plan:
-        if blk.kind not in _PORTED_KINDS:
-            raise NotImplementedError(f"{cfg.name}: block kind {blk.kind!r} is "
-                                      f"{_ROADMAP_ITEM[blk.kind]}")
-    return plan
-
-
 # ------------------------------------------------------------------- init --
 def _init_stack(gen: torch.Generator, cfg: ArchConfig, kind: str, lead: tuple, dtype,
                 device) -> dict:
@@ -105,18 +95,19 @@ def _init_stack(gen: torch.Generator, cfg: ArchConfig, kind: str, lead: tuple, d
                 "norm2": norm()}  # tm includes the channel-mix params
     if kind == "mamba":
         return {"norm": norm(), "mamba": ssm.init_mamba(gen, lead, cfg, dtype, device)}
-    return {
-        "norm1": norm(),
-        "attn": attn.init_attn(gen, lead, cfg, dtype, device),
-        "norm2": norm(),
-        "mlp": init_mlp(gen, lead, d, cfg.d_ff, cfg.mlp, dtype, device),
-    }
+    layer = {"norm1": norm(), "attn": attn.init_attn(gen, lead, cfg, dtype, device),
+             "norm2": norm()}
+    if kind == "moe":
+        layer["moe"] = moe.init_moe(gen, lead, cfg, dtype, device)
+    else:
+        layer["mlp"] = init_mlp(gen, lead, d, cfg.d_ff, cfg.mlp, dtype, device)
+    return layer
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, device=None) -> dict:
     """Random params from ``seed`` with the JAX package's shapes (not its
     values: torch cannot replay ``jax.random``; ``bridge`` copies those)."""
-    plan = _check_ported(cfg)
+    plan = layer_plan(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: dict[str, Any] = {
@@ -127,6 +118,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, device=Non
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
                                    dtype, dev)
+    if cfg.frontend == "patch_embed":
+        params["patch_proj"] = normal(gen, (cfg.d_model, cfg.d_model), cfg.d_model ** -0.5,
+                                      dtype, dev)
     shared: dict[int, dict] = {}
     for blk in plan:
         if blk.kind == "shared_attn":
@@ -156,8 +150,15 @@ def _block_layer(params: dict, blk: BlockSpec, bparams: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------- forward --
-def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict,
-                   x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor):
+    """The dense MLP or the MoE FFN of a layer: (y, aux, keep mask or None)."""
+    if kind == "moe":
+        return moe.moe_mlp(p["moe"], cfg, h)
+    return mlp(p["mlp"], h, cfg.mlp, cfg.act), 0.0, None
+
+
+def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor):
+    """One full-sequence layer: (x, MoE aux loss, dropped (token, k) pairs)."""
     if kind == "rwkv":  # zero shift and zero state; the new ones are dropped
         b, _, d = x.shape
         P = cfg.ssm_head_dim
@@ -166,13 +167,14 @@ def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict,
         h = rmsnorm(x, p["norm1"], cfg.norm_eps)
         x = x + rwkv.rwkv_time_mix(p["tm"], cfg, h, shift0, state0)[0]
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        return x + rwkv.rwkv_channel_mix(p["tm"], cfg, h, shift0)[0]
+        return x + rwkv.rwkv_channel_mix(p["tm"], cfg, h, shift0)[0], 0.0, 0
     if kind == "mamba":
-        return x + ssm.mamba_forward(p["mamba"], cfg, rmsnorm(x, p["norm"], cfg.norm_eps))
+        h = rmsnorm(x, p["norm"], cfg.norm_eps)
+        return x + ssm.mamba_forward(p["mamba"], cfg, h), 0.0, 0
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + attn.full_attention(p["attn"], cfg, h, local=local)
-    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp, cfg.act)
+    y, aux, keep = _ffn(cfg, kind, p, rmsnorm(x, p["norm2"], cfg.norm_eps))
+    return x + y, aux, 0 if keep is None else keep.numel() - keep.sum()
 
 
 def forward_layers(cfg: ArchConfig, stack: dict, lo: int, hi: int,
@@ -181,7 +183,7 @@ def forward_layers(cfg: ArchConfig, stack: dict, lo: int, hi: int,
     layer axis) on ``x``: the body of a pipeline stage."""
     local = cfg.attn == "swa"
     for i in range(lo, hi):
-        x = _layer_forward(cfg, "dense", local, _layer(stack, i), x)
+        x = _layer_forward(cfg, "dense", local, _layer(stack, i), x)[0]
     return x
 
 
@@ -192,18 +194,38 @@ def final_logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor
     return unembed(head, x, tied=cfg.tie_embeddings)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict):
-    """Full-sequence forward (prefill). batch: {"tokens": (b, s)}.
-
-    Returns (logits, aux); aux carries the MoE loss, 0 for dense stacks."""
-    plan = _check_ported(cfg)
+def _embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """The layers' input: frame embeddings as given; or token embeddings, with
+    a patch prefix projected over the first P positions where the batch has
+    one that fits (P <= s: at prefill, never at decode)."""
+    if cfg.frontend == "frame_embed":
+        return batch["frame_embeds"]
     x = embed(params["embed"], batch["tokens"])
-    for blk, bparams in zip(plan, params["blocks"]):
+    pe = batch.get("patch_embeds") if cfg.frontend == "patch_embed" else None
+    if pe is not None and pe.shape[1] <= x.shape[1]:
+        x[:, :pe.shape[1]] = (pe @ params["patch_proj"]).to(x.dtype)
+    return x
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict):
+    """Full-sequence forward (prefill). batch: {"tokens": (b, s)}, plus
+    {"patch_embeds": (b, P, d)} for ``patch_embed``; {"frame_embeds":
+    (b, s, d)} for ``frame_embed``.
+
+    Returns (logits, aux): ``aux["moe_aux"]`` is the sum of the layers'
+    load-balancing losses (fp32, 0 without MoE layers), as in JAX;
+    ``aux["moe_dropped"]`` counts the (token, k) pairs the layers dropped
+    at capacity."""
+    x = _embed_input(cfg, params, batch)
+    aux, dropped = 0.0, 0  # tensors from the first MoE layer on
+    for blk, bparams in zip(layer_plan(cfg), params["blocks"]):
         for i in range(blk.n):
-            x = _layer_forward(cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i),
-                               x)
-    logits = final_logits(cfg, params, x)
-    return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+            x, a, n = _layer_forward(cfg, blk.kind, blk.local,
+                                     _block_layer(params, blk, bparams, i), x)
+            aux, dropped = aux + a, dropped + n
+    return final_logits(cfg, params, x), {
+        "moe_aux": torch.as_tensor(aux, dtype=torch.float32, device=x.device),
+        "moe_dropped": torch.as_tensor(dropped, dtype=torch.int64, device=x.device)}
 
 
 # ------------------------------------------------------------------ cache --
@@ -214,7 +236,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     O(1). Each ``shared_attn`` occurrence has its own cache (leading axis 1)."""
     dev = resolve_device(device)
     caches = []
-    for blk in _check_ported(cfg):
+    for blk in layer_plan(cfg):
         if blk.kind == "rwkv":
             caches.append(rwkv.init_rwkv_cache(cfg, blk.n, batch, dtype, dev))
             continue
@@ -227,16 +249,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def decode_step(cfg: ArchConfig, params: dict, caches: list, batch: dict, pos: int):
-    """One-token decode. batch: {"tokens": (b, 1)}; ``pos`` is the current
-    sequence position. ``caches`` is updated in place and the same list is
+    """One-token decode. batch: {"tokens": (b, 1)}, or {"frame_embeds":
+    (b, 1, d)} for ``frame_embed``; ``pos`` is the current sequence
+    position. ``caches`` is updated in place and the same list is
     returned: attention blocks write this token's k/v (every lane of the
     batch at one slot); rwkv blocks overwrite ``shift_tm``, ``shift_cm`` and
     ``wkv`` with their new values (the wkv kernel writes the new state over
     the old one); mamba blocks overwrite ``conv`` and ``ssm``."""
-    plan = _check_ported(cfg)
     pos = int(pos)
-    x = embed(params["embed"], batch["tokens"])
-    for blk, bparams, cache in zip(plan, params["blocks"], caches):
+    x = _embed_input(cfg, params, batch)
+    for blk, bparams, cache in zip(layer_plan(cfg), params["blocks"], caches):
         for i in range(blk.n):
             x = _layer_decode(cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i),
                               x, _layer(cache, i), pos)
@@ -259,5 +281,4 @@ def _layer_decode(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Ten
         lc["shift_cm"].copy_(new_cm)
         return x + y
     x = x + attn.decode_attention(p["attn"], cfg, h, lc, pos, local=local)
-    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp, cfg.act)
+    return x + _ffn(cfg, kind, p, rmsnorm(x, p["norm2"], cfg.norm_eps))[0]

@@ -16,11 +16,15 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..models import attention as attn
 from ..models import transformer as tf
 
 
-def _tokens(tokens, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(tokens, device=device).long()
+def _on_device(batch: dict, device: torch.device) -> dict:
+    """The batch on ``device``: ``tokens`` as int64, every other entry
+    (``patch_embeds``, ``frame_embeds``) in its own dtype."""
+    return {name: torch.as_tensor(v, device=device).long() if name == "tokens"
+            else torch.as_tensor(v, device=device) for name, v in batch.items()}
 
 
 def make_prefill(cfg: ArchConfig, device=None):
@@ -28,7 +32,7 @@ def make_prefill(cfg: ArchConfig, device=None):
 
     @torch.inference_mode()
     def prefill(params, batch):
-        logits, _ = tf.forward(cfg, params, {"tokens": _tokens(batch["tokens"], dev)})
+        logits, _ = tf.forward(cfg, params, _on_device(batch, dev))
         return logits
 
     return prefill
@@ -39,8 +43,7 @@ def make_serve_step(cfg: ArchConfig, device=None):
 
     @torch.inference_mode()
     def serve_step(params, caches, batch, pos):
-        return tf.decode_step(cfg, params, caches,
-                              {"tokens": _tokens(batch["tokens"], dev)}, pos)
+        return tf.decode_step(cfg, params, caches, _on_device(batch, dev), pos)
 
     return serve_step
 
@@ -66,12 +69,16 @@ class ServingEngine:
     of the JAX engine, including its feeding the last prompt token twice
     (once while admitting, once as the first decode input).
 
-    Cache lanes: the JAX engine decodes all lanes and copies lane ``i`` back.
-    Here decode writes the cache in place, so ``_step_slot`` decodes on a
-    view of lane ``i`` alone (batch 1): it writes lane ``i`` and no other,
-    and computes the same values for it, lanes being independent. As in the
-    JAX engine, admitting a request resets its slot's position but not its
-    cache lane: attention masks stale k/v by position, while the rwkv state
+    Cache lanes: the JAX engine decodes all lanes (each fed the stepped
+    lane's token at its position) and copies lane ``i`` back. Here decode
+    writes the cache in place, so ``_step_slot`` decodes on a view of lane
+    ``i`` alone (batch 1): it writes lane ``i`` and no other, and computes
+    the same values for it where lanes are independent. At an MoE layer they
+    are not: the lanes' tokens share one dispatch group and compete for its
+    capacity, so an MoE model decodes every lane, as JAX does, and puts the
+    other lanes' k/v at the written slot back. As in the JAX engine,
+    admitting a request resets its slot's position but not its cache lane:
+    attention masks stale k/v by position, while the rwkv state
     (token shifts and wkv) and the mamba state (``conv`` history and
     ``ssm``), which have no position, carry over from the slot's previous
     request.
@@ -92,6 +99,8 @@ class ServingEngine:
         self.pos = [0] * batch_slots
         self._next_rid = 0
         self._decode = make_serve_step(cfg, self.device)
+        self._plan = tf.layer_plan(cfg)
+        self._lanes_share_routing = any(blk.kind == "moe" for blk in self._plan)
 
     def submit(self, prompt: list[int], max_new_tokens: int = 32) -> int:
         rid = self._next_rid
@@ -111,10 +120,30 @@ class ServingEngine:
                     self._step_slot(i, t)
 
     def _step_slot(self, i: int, token: int) -> int:
-        lane = [{name: c[:, i:i + 1] for name, c in cache.items()} for cache in self.caches]
-        logits, _ = self._decode(self.params, lane, {"tokens": [[token]]}, self.pos[i])
+        if self._lanes_share_routing:
+            logits = self._step_all_lanes(i, token)
+        else:
+            lane = [{name: c[:, i:i + 1] for name, c in cache.items()} for cache in self.caches]
+            logits = self._decode(self.params, lane, {"tokens": [[token]]}, self.pos[i])[0][0]
         self.pos[i] += 1
-        return int(torch.argmax(logits[0, -1]))
+        return int(torch.argmax(logits[-1]))
+
+    def _step_all_lanes(self, i: int, token: int) -> torch.Tensor:
+        """Lane ``i``'s logits from a decode of every lane, each fed ``token``
+        at ``pos[i]``, as the JAX engine runs it; only lane ``i`` keeps what
+        the step wrote into the (attention-only) caches."""
+        pos = self.pos[i]
+        slots = [attn.cache_slot(pos, cache["k"].shape[2], blk.local)
+                 for blk, cache in zip(self._plan, self.caches)]
+        saved = [{name: c[:, :, slot].clone() for name, c in cache.items()}
+                 for slot, cache in zip(slots, self.caches)]
+        tokens = [[token]] * len(self.slots)
+        logits, _ = self._decode(self.params, self.caches, {"tokens": tokens}, pos)
+        for slot, cache, old in zip(slots, self.caches, saved):
+            for name, c in cache.items():
+                old[name][:, i] = c[:, i, slot]
+                c[:, :, slot] = old[name]
+        return logits[i]
 
     def step(self) -> None:
         """One engine tick: admit + one decode step for every active slot."""

@@ -20,15 +20,15 @@ def _perturb(tree, rng, noise):
 
 def numpy_params(cfg, seed, noise=0.1, out_scale=1.0):
     """JAX init_params as numpy, norms perturbed; ``out_scale`` multiplies the
-    output projections of every layer (attention ``wo`` and MLP ``w_out``,
-    rwkv time-mix ``Wo`` and channel-mix ``cm_Wv``, mamba ``w_out``, and the
-    shared blocks' ``wo`` and ``w_out``), so that layers, not the embedding,
-    decide greedy tokens."""
+    output projections of every layer (attention ``wo``, MLP and MoE
+    ``w_out``, rwkv time-mix ``Wo`` and channel-mix ``cm_Wv``, mamba
+    ``w_out``, and the shared blocks' ``wo`` and ``w_out``), so that layers,
+    not the embedding, decide greedy tokens."""
     params = jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(seed),
                                                       jnp.float32))
     params = _perturb(params, np.random.default_rng(seed), noise)
     outputs = {"tm": ("Wo", "cm_Wv"), "attn": ("wo",), "mlp": ("w_out",),
-               "mamba": ("w_out",)}
+               "moe": ("w_out",), "mamba": ("w_out",)}
     # the hybrid stack's shared_attn blocks are {} in "blocks"; their layers
     # are the "shared" list
     for layer in params["blocks"] + params.get("shared", []):

@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention, wkv6, the SSD scan, the INT8 PU GEMM)
-against their plain PyTorch versions, and the pipeline executor on CUDA
-streams against the plain forward, on the card. This file imports no JAX (the
+against their plain PyTorch versions, the pipeline executor on CUDA
+streams against the plain forward, and the MoE FFN and the patch and frame
+frontends on the card against the same code on the CPU. This file imports no JAX (the
 machine with the card has none); every test here needs a CUDA device and
 skips without one:
 
@@ -25,6 +26,7 @@ from repro_torch.kernels.rwkv6.ref import wkv6_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.runtime import pipeline as pp  # noqa: E402
 
@@ -56,6 +58,8 @@ CASES = [
     (1, 77, 4, 2, 256, None, torch.float32, 2e-5),
     (1, 99, 2, 1, 256, 20, torch.float32, 2e-5),
     (1, 150, 4, 4, 112, None, torch.bfloat16, 3e-2),
+    # musicgen-large's MHA at hd 64 (32 heads, 32 kv heads) at a reduced length
+    (2, 256, 32, 32, 64, None, torch.float32, 2e-5),
 ]
 
 
@@ -522,3 +526,69 @@ def test_pipeline_on_streams_matches_forward(cuda, L, S):
     torch.testing.assert_close(out.reshape(M * mb, s, -1), want, rtol=2e-3, atol=2e-3)
     assert fn.counts == pp.program_sync_counts(plan)
     assert [len(ms) for ms in fn.stage_ms] == [M] * S
+
+
+# ------------------------------------------- MoE and frontends, card vs CPU --
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+@pytest.mark.parametrize("shared", [0.0, 1.0])
+def test_moe_mlp_on_cuda_matches_cpu(cuda, arch, shared):
+    """Reduced configs, 1 x 131 tokens (two groups of 65 and a ragged
+    tail); ``shared`` = 1 adds one vector to every token, so pairs drop. The
+    keep mask equal, y and aux at 1e-4 (fp32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    p = moe.init_moe(torch.Generator().manual_seed(0), (), cfg, torch.float32, "cpu")
+    r = np.random.default_rng(1)
+    x = 0.5 * r.standard_normal((1, 131, cfg.d_model)) + shared * r.standard_normal(cfg.d_model)
+    x = torch.from_numpy(x.astype(np.float32))
+    want = moe.moe_mlp(p, cfg, x)
+    got = moe.moe_mlp(_on(p, "cuda"), cfg, x.cuda())
+    assert torch.equal(got[2].cpu(), want[2])
+    assert bool((~want[2]).any()) == bool(shared)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "internvl2-76b", "musicgen-large"])
+def test_frontier_models_on_cuda_match_cpu(cuda, arch):
+    """Reduced configs on the card (flash attention at prefill) against the
+    CPU: the forward with a patch prefix or frame embeddings, then 6 decode
+    steps at batch 2, logits at 2e-3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    r = np.random.default_rng(2)
+    B, S = 2, 48
+
+    def embeds(s):
+        return torch.from_numpy((0.02 * r.standard_normal((B, s, cfg.d_model))).astype(np.float32))
+
+    if cfg.frontend == "frame_embed":
+        batch = {"frame_embeds": embeds(S)}
+    else:
+        batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (B, S)))}
+        if cfg.frontend == "patch_embed":
+            batch["patch_embeds"] = embeds(cfg.n_prefix_embeds)
+    want, waux = tf.forward(cfg, params, batch)
+    cparams = _on(params, "cuda")
+    before = kernel.launches
+    got, aux = tf.forward(cfg, cparams, _on(batch, "cuda"))
+    assert kernel.launches - before == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(aux["moe_aux"].cpu(), waux["moe_aux"], rtol=2e-3, atol=2e-3)
+    caches = [tf.init_cache(cfg, B, 8, torch.float32, dev) for dev in ("cpu", "cuda")]
+    for t in range(6):
+        step = {k: v[:, t:t + 1] for k, v in batch.items() if k != "patch_embeds"}
+        want, _ = tf.decode_step(cfg, params, caches[0], step, t)
+        got, _ = tf.decode_step(cfg, cparams, caches[1], _on(step, "cuda"), t)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)

@@ -1,7 +1,9 @@
-"""The port's dense transformer against the JAX package on bridged fp32
-weights (reduced configs, CPU): forward at rtol = atol = 2e-3
+"""The port's transformer against the JAX package on bridged fp32 weights
+(reduced configs, CPU): forward at rtol = atol = 2e-3
 (tests/test_models.py:111), decode against forward, decode against JAX
-decode, the weight bridge, and the device rule."""
+decode, the weight bridge, and the device rule; the MoE kind (dbrx-132b,
+grok-1-314b) and the patch and frame frontends (internvl2-76b,
+musicgen-large) against JAX; every config's forward and decode step."""
 import numpy as np
 import pytest
 
@@ -142,13 +144,6 @@ def test_device_none_means_cuda():
             call()
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "musicgen-large", "internvl2-76b"])
-def test_unported_kinds_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        tf.init_params(cfg, device="cpu")
-
-
 def test_rwkv6_builds_on_cpu():
     """rwkv6-7b is a ported kind: random params from a seed, a forward and a
     decode step run on the CPU with finite logits."""
@@ -184,3 +179,154 @@ def test_zamba2_init_params_builds_jax_tree():
     cache = tf.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
     lg, out = tf.decode_step(cfg, params, cache, {"tokens": toks[:, :1]}, 0)
     assert out is cache and bool(torch.isfinite(lg).all())
+
+
+# ------------------------------------------ moe kind, patch and frame frontends --
+FRONTIER = ["dbrx-132b", "grok-1-314b", "internvl2-76b", "musicgen-large"]
+
+
+def _batch(cfg, b, s, seed, patch=True):
+    """numpy inputs as tests/test_models.py:make_batch draws them: tokens, or
+    0.02 N(0, 1) frame embeddings, plus a patch prefix for ``patch_embed``."""
+    r = np.random.default_rng(seed)
+    if cfg.frontend == "frame_embed":
+        return {"frame_embeds": (0.02 * r.standard_normal((b, s, cfg.d_model))).astype(np.float32)}
+    batch = {"tokens": r.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.frontend == "patch_embed" and patch:
+        batch["patch_embeds"] = (0.02 * r.standard_normal((b, cfg.n_prefix_embeds, cfg.d_model))
+                                 ).astype(np.float32)
+    return batch
+
+
+def _jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch,patch", [(a, True) for a in FRONTIER]
+                         + [("internvl2-76b", False)])
+def test_frontier_forward_matches_jax(arch, patch):
+    """Logits and moe_aux at 2e-3; 2 x 40 tokens are one dispatch group of 80
+    (moe_group 64 reduced: gl 80 after the split, C 50)."""
+    jcfg, cfg, jp, tp = _setup(arch, seed=0)
+    batch = _batch(cfg, 2, 40, seed=1, patch=patch)
+    want, waux = jtf.forward(jcfg, jp, _jax_batch(batch))
+    got, aux = tf.forward(cfg, tp, _torch_batch(batch))
+    assert got.shape == (2, 40, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux["moe_aux"]), float(waux["moe_aux"]), **TOL)
+    assert (float(aux["moe_aux"]) > 0) == (cfg.family == "moe")
+    assert aux["moe_dropped"].dtype == torch.int64 and int(aux["moe_dropped"]) >= 0
+
+
+def test_moe_forward_counts_dropped_pairs():
+    """``moe_dropped`` is the sum over layers of the (token, k) pairs each
+    layer's routing dropped; a prompt shorter than the capacity floor 4
+    drops none."""
+    _, cfg, _, tp = _setup("dbrx-132b", seed=0)
+    toks = torch.from_numpy(_tokens(cfg, 1, 4, seed=2)).long()
+    assert int(tf.forward(cfg, tp, {"tokens": toks})[1]["moe_dropped"]) == 0
+    same = torch.full((2, 64), 7, dtype=torch.long)  # one token everywhere: one queue
+    _, aux = tf.forward(cfg, tp, {"tokens": same})
+    assert int(aux["moe_dropped"]) > 0
+
+
+@pytest.mark.parametrize("arch", FRONTIER)
+def test_frontier_decode_step_matches_jax(arch):
+    """Logits and k/v caches after each of 6 steps at batch 2 (both lanes
+    in one dispatch group at MoE layers, as in JAX); internvl2 decodes
+    tokens, musicgen frame embeddings."""
+    jcfg, cfg, jp, tp = _setup(arch, seed=5)
+    B, L, S = 2, 16, 6
+    batch = _batch(cfg, B, S, seed=9, patch=False)
+    jcache = jtf.init_cache(jcfg, B, L, jnp.float32)
+    tcache = tf.init_cache(cfg, B, L, torch.float32, "cpu")
+    step = jax.jit(lambda p, c, b, pos: jtf.decode_step(jcfg, p, c, b, pos))
+    for t in range(S):
+        bt = {k: v[:, t:t + 1] for k, v in batch.items()}
+        want, jcache = step(jp, jcache, _jax_batch(bt), jnp.int32(t))
+        got, tcache = tf.decode_step(cfg, tp, tcache, _torch_batch(bt), t)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for jc, tc in zip(jcache, tcache):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]), **TOL)
+
+
+@pytest.mark.parametrize("arch", FRONTIER)
+def test_frontier_decode_matches_forward(arch):
+    """Token-by-token decode reproduces the forward: musicgen on frame
+    embeddings (as tests/test_models.py:72-76 holds it), internvl2 on tokens
+    (decode never sees a patch prefix), dbrx and grok on a prompt of 4, the
+    capacity floor, where the forward's one group of 4 can drop nothing
+    (a longer prompt drops pairs at prefill that decode, one token a group,
+    never does: why the reference leaves MoE out)."""
+    cfg = get_config(arch).reduced()
+    params = bridge.params_from_numpy(numpy_params(jget(arch).reduced(), seed=3), device="cpu")
+    S = 4 if cfg.family == "moe" else 24
+    batch = _torch_batch(_batch(cfg, 1, S, seed=7, patch=False))
+    full, aux = tf.forward(cfg, params, batch)
+    assert int(aux["moe_dropped"]) == 0
+    cache = tf.init_cache(cfg, 1, max_len=S, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(S):
+        lg, cache = tf.decode_step(cfg, params, cache,
+                                   {k: v[:, t:t + 1] for k, v in batch.items()}, t)
+        outs.append(lg[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(), **TOL)
+
+
+def test_vlm_prefix_embeds_change_output():
+    """The twin of tests/test_models.py:116: the patch prefix reaches the
+    logits, at its own positions and (through attention) after them; a
+    prefix longer than the sequence is ignored, as at decode."""
+    cfg = get_config("internvl2-76b").reduced()
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    assert params["patch_proj"].shape == (cfg.d_model, cfg.d_model)
+    batch = _torch_batch(_batch(cfg, 1, 32, seed=0))
+    l1, _ = tf.forward(cfg, params, batch)
+    l2, _ = tf.forward(cfg, params, {**batch, "patch_embeds": batch["patch_embeds"] + 1.0})
+    assert float((l1 - l2).abs().max()) > 1e-4
+    P = cfg.n_prefix_embeds
+    assert float((l1[:, P:] - l2[:, P:]).abs().max()) > 1e-4
+    short = {"tokens": batch["tokens"][:, :P - 1]}
+    np.testing.assert_array_equal(
+        tf.forward(cfg, params, {**short, "patch_embeds": batch["patch_embeds"]})[0].numpy(),
+        tf.forward(cfg, params, short)[0].numpy())
+
+
+def test_init_params_builds_jax_tree_for_every_config():
+    for arch in ALL_ARCHS:
+        jcfg, cfg = jget(arch).reduced(), get_config(arch).reduced()
+        jshapes = jax.tree.map(lambda a: tuple(a.shape),
+                               jax.eval_shape(lambda: jtf.init_params(
+                                   jcfg, jax.random.PRNGKey(0), jnp.float32)))
+        tp = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        assert jax.tree.map(lambda a: tuple(a.shape), bridge.params_to_numpy(tp)) == jshapes
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_config_forward_shapes_and_finite(arch):
+    """The twin of TestArchSmoke.test_forward_shapes_and_finite
+    (tests/test_models.py:30): the port's own seeded init, B 2, S 64."""
+    cfg = get_config(arch).reduced()
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    logits, aux = tf.forward(cfg, params, _torch_batch(_batch(cfg, 2, 64, seed=0)))
+    assert logits.shape == (2, 64, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(aux["moe_aux"]))
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_config_decode_step_shapes(arch):
+    """The twin of TestArchSmoke.test_decode_step_shapes
+    (tests/test_models.py:62)."""
+    cfg = get_config(arch).reduced()
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    cache = tf.init_cache(cfg, 2, max_len=128, dtype=torch.float32, device="cpu")
+    logits, out = tf.decode_step(cfg, params, cache, _torch_batch(_batch(cfg, 2, 1, seed=0)), 0)
+    assert out is cache and logits.shape == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
