@@ -9,15 +9,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel from the sources in this checkout with nvcc (sm_90a), one nvcc per
    source, all started together;
 2. kernel check: each kernel against its plain PyTorch version on the card
-   (flash attention, head dims 112 and 120 included; wkv6, also against its
-   tile size and with the state updated in place; the SSD scan, y and final
+   (flash attention, head dims 112, 120 and 256 included, gemma3-4b's band
+   beyond its window too; wkv6, also against its tile size and with the
+   state updated in place; the SSD scan, y and final
    state, also against the chunked plain version and its tile size; the INT8
    GEMM bit for bit, w row-major and column-major, at the TestGemmInt8
    inputs and at few-block long-K shapes that split K, and the int32 wrap
    at K = 2^17);
-3. six main paths at full width, fp32, random weights from a seed, one
+3. seven serving paths at full width, fp32, random weights from a seed, one
    after the other (each one's weights are freed before the next):
-   qwen3-0.6b (28 layers, the flash-attention kernel), rwkv6-7b (32 layers,
+   qwen3-0.6b (28 layers, the flash-attention kernel), gemma3-4b (34 layers,
+   window 1024 on 5 of every 6, hd 256, a tied 262144-row head), rwkv6-7b (32 layers,
    7.57 B params, the wkv6 kernel), zamba2-7b (81 mamba layers and 13
    occurrences of 2 shared attention blocks, 6.95 B params, the SSD-scan and
    flash-attention kernels), dbrx-132b (MoE, 16 experts top-4; depth cut
@@ -47,8 +49,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tokens as CUDA events, 4 microbatches of 1 x 4608 tokens (beyond the
    window), against the plain forward on the same tokens at 2e-3, its token
    operations equal to what the programs prescribe;
-6. timing: each kernel, its plain version and the PyTorch library call (where
-   one exists) at its main-path shapes (flash attention at four, wkv6 at the
+6. training: qwen3-0.6b at full width and depth, fp32, AdamW, 4 x 1024
+   tokens of the token stream a step: one step without remat and two with
+   from the same state (the same loss and grad norm), the same step with the
+   plain attention forward (a check), 5 steps on one batch (the nll falls),
+   a checkpoint after step 2 restored and steps 3-5 run again (params
+   bit-equal); flash attention forward a layer a step (and again with remat),
+   its backward the plain version's gradient;
+7. timing: each kernel, its plain version and the PyTorch library call (where
+   one exists) at its main-path shapes (flash attention at five, wkv6 at the
    prefill and at the decode step), beside the card's bound; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
@@ -57,7 +66,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Every launch count is set to 0 just before a path's first call and read just
 after its last: each of the path's kernels must have launched its expected
 number of times (per prefill call and decode step, per network pass, per
-pipeline and forward call), and the other kernels not at all. The last three
+pipeline and forward call, per train step), and the other kernels not at all. The last three
 lines are the
 kernels JSON, the card, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repository, it exits non-zero and prints
@@ -83,18 +92,21 @@ ARCH = "qwen3-0.6b"
 RWKV_ARCH = "rwkv6-7b"
 ZAMBA_ARCH = "zamba2-7b"
 MOE_ARCH, VLM_ARCH, AUDIO_ARCH = "dbrx-132b", "internvl2-76b", "musicgen-large"
+GEMMA_ARCH = "gemma3-4b"
 # depth cuts, full width: fp32 dbrx-132b takes 13.0 GB a layer (16 experts of
 # 3 x 6144 x 10752) + 4.9 GB of embedding and head, internvl2-76b 3.42 GB a
 # layer + 8.7 GB; 4 and 8 layers leave room for the activations in 80 GB
 DEPTH = {MOE_ARCH: 4, VLM_ARCH: 8}
 # launches of each kernel per prefill call and per decode step, by path:
-# qwen3-0.6b has 28 attention layers; rwkv6-7b 32 rwkv layers, whose decode
-# runs the wkv6 kernel too; zamba2-7b 81 mamba layers (SSD scan) and 13
-# shared-attention occurrences, and its decode is plain tensor code; dbrx-132b
-# and internvl2-76b an attention layer each of their 4 and 8, musicgen-large
-# 48; their decode is plain tensor code
+# qwen3-0.6b has 28 attention layers, gemma3-4b 34 (window 1024 on 5 of every
+# 6); rwkv6-7b 32 rwkv layers, whose decode runs the wkv6 kernel too;
+# zamba2-7b 81 mamba layers (SSD scan) and 13 shared-attention occurrences,
+# and its decode is plain tensor code; dbrx-132b and internvl2-76b an
+# attention layer each of their 4 and 8, musicgen-large 48; their decode is
+# plain tensor code
 PATHS = [
     (ARCH, {"flash_attention": 28}, {}),
+    (GEMMA_ARCH, {"flash_attention": 34}, {}),
     (RWKV_ARCH, {"wkv6": 32}, {"wkv6": 32}),
     (ZAMBA_ARCH, {"ssd_scan": 81, "flash_attention": 13}, {}),
     (MOE_ARCH, {"flash_attention": DEPTH[MOE_ARCH]}, {}),
@@ -182,6 +194,19 @@ GEMM_TIMED = ("layer3.0.conv2", 16)
 PIPE_ARCH = "h2o-danube-3-4b"
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN = 4, 4, 1, 4608
 PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
+# the training path: qwen3-0.6b at full width and depth, fp32, AdamW (no
+# warmup, so that 5 steps on one repeated batch move the loss), the token
+# stream at its vocabulary, 4 x 1024 tokens a step; a checkpoint after step
+# TRAIN_RESUME_AT. Each step launches flash attention once a layer in the
+# forward, and once more a layer with remat (the recomputed forward); the
+# backward recomputes attention with the plain version, which launches none.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_RESUME_AT = ARCH, 4, 1024, 5, 2
+TRAIN_LR = 1e-4
+# remat vs not: the same kernels on the same inputs, so ~0 is expected; the
+# kernel's forward vs the plain one: ~1e-6 relative on the loss (the kernel's
+# fp32 sums in another order), and the gradient flows through activations
+# that differ by as much
+TRAIN_TOL, TRAIN_PLAIN_GRAD_TOL = 1e-5, 1e-4
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -458,6 +483,9 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
                  f"{moe._capacity(cfg, gl)}")
     else:
         shape = attn_shape
+        if cfg.attn == "local_global":
+            shape += (f", window {cfg.window} on {cfg.global_every - 1} of every "
+                      f"{cfg.global_every} layers, d_ff {cfg.d_ff} {cfg.mlp}, tied head")
         if cfg.frontend != "tokens":
             shape += (f", d_ff {cfg.d_ff} {cfg.mlp}, "
                       + ("frame embeddings in" if frames else
@@ -663,8 +691,9 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
 def check_flash_attention(fa_kernel, mha_reference, report) -> float:
     """The flash-attention kernel against its plain version; returns the
     largest error at the shapes the paths run in fp32 (the qwen3-0.6b,
-    zamba2-7b, dbrx-132b, internvl2-76b and musicgen-large prefills, the
-    h2o-danube-3-4b pipeline)."""
+    gemma3-4b, zamba2-7b, dbrx-132b, internvl2-76b and musicgen-large
+    prefills, gemma3's band beyond its window, the h2o-danube-3-4b
+    pipeline)."""
     # (b, s, H, G, hd, window, dtype, tol, label): tests/test_kernels.py:28-85
     # shapes and tolerances, head dims 112 (zamba2-7b's shared blocks: MHA,
     # 32 heads) and 120 (h2o-danube-3-4b, windowed), plus the prefills'
@@ -702,6 +731,11 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
          "internvl2 prefill fp32"),
         (PREFILL_BATCH, PREFILL_LEN, 32, 32, 64, None, torch.float32, 1e-4,
          "musicgen prefill fp32"),
+        # gemma3-4b at hd 256: its prefill (window 1024 = s keeps every causal
+        # pair) and s 2048 beyond the window, so the band masks
+        (PREFILL_BATCH, PREFILL_LEN, 8, 4, 256, 1024, torch.float32, 1e-4,
+         "gemma3 prefill fp32"),
+        (1, 2 * PREFILL_LEN, 8, 4, 256, 1024, torch.float32, 1e-4, "gemma3 band fp32"),
         # the kernel's tiles (256 q rows and 32 kv rows; 64 and 16 at hd 256):
         # s a multiple of neither, windows whose left edge falls mid-tile at
         # hd 112 and 120, hd 16 and 256 at ragged s, bf16 at hd 112 ragged
@@ -734,7 +768,7 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         torch.cuda.synchronize()
         report(f"kernel check flash_attention {label} b={b} s={s} H={H} G={G} hd={hd} "
                f"window={window} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol}){extra}")
-        if label.endswith(("prefill fp32", "pipeline fp32")):
+        if label.endswith(("prefill fp32", "pipeline fp32", "band fp32")):
             slice_err = max(slice_err, err)
     for s, hd, window in ((64, 32, None), (130, 120, None), (130, 120, 50)):
         q, k, v = qkv(1, s, 2, 2, hd, seed=SEED, dtype=torch.float32, ones_v=True)
@@ -1359,6 +1393,190 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
     return launches
 
 
+def drive_train(kernel_mods, report, profile=False) -> dict:
+    """The training path at full width and depth: TRAIN_ARCH in fp32 with
+    AdamW, TRAIN_BATCH x TRAIN_LEN tokens of the token stream a step.
+    a. one step from the same state without remat and two with (the second
+       timed warm): the same loss and grad norm (TRAIN_TOL relative);
+    b. a check, not the main path: the same step with the attention forward
+       forced to the plain version, loss at TRAIN_TOL and grad norm at
+       TRAIN_PLAIN_GRAD_TOL relative to (a);
+    c. TRAIN_STEPS steps on one repeated batch: the nll falls;
+    d. a checkpoint written after step TRAIN_RESUME_AT, restored, and the
+       steps after it run again: params bit-equal to (c)'s.
+    With ``profile``, a profiler window over one more step without remat.
+    Every launch count is set to 0 just before (a) and read after (d) (or
+    the profiled step): flash attention once a layer a step, twice with
+    remat, never in (b); the other kernels never. Returns the counts."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import kept_pairs
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime import train
+    from repro_torch.runtime.data import DataConfig, TokenStream
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    L, b, s = cfg.num_layers, TRAIN_BATCH, TRAIN_LEN
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
+    torch.cuda.reset_peak_memory_stats()
+    params, state0 = train.init_train_state(cfg, opt_cfg, seed=SEED, dtype=torch.float32)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                   seed=SEED)).next()
+    step_fns = {remat: train.make_train_step(cfg, opt_cfg, remat=remat)
+                for remat in (False, True)}
+    fa = kernel_mods["flash_attention"]
+    print(f"{TRAIN_ARCH} training: {L} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e6:.1f}M params fp32, AdamW (lr {TRAIN_LR}, no warmup) fp32 moments, "
+          f"{b} x {s} tokens a step from the token stream; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held by params and optimizer state")
+
+    def step(remat, p, st):
+        """One step: its outputs, wall (CUDA events), the allocator's peak
+        and that peak above what was allocated before the step (GB), and
+        its flash launches."""
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = fa.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fns[remat](p, st, batch)
+        end.record()
+        end.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return out, dict(ms=start.elapsed_time(end), peak=peak / 1e9, own=(peak - base) / 1e9,
+                         n=fa.launches - before)
+
+    def rel(x, y):
+        return abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    # ------------------------------------------------- a. remat or not --
+    runs = []
+    for remat in (False, True, True):
+        (p, st, m), r = step(remat, params, state0)
+        runs.append(dict(r, remat=remat, m={k: float(v) for k, v in m.items()}))
+        del p, st
+    for r in runs:
+        if r["n"] != L * (2 if r["remat"] else 1):
+            raise AssertionError(f"train step (remat={r['remat']}) launched flash {r['n']} "
+                                 f"times, want {L * (2 if r['remat'] else 1)}")
+        if not all(np.isfinite(v) for v in r["m"].values()):
+            raise AssertionError(f"train step (remat={r['remat']}) metrics {r['m']}")
+    a = runs[0]["m"]
+    diffs = {k: max(rel(r["m"][k], a[k]) for r in runs[1:]) for k in ("nll", "z_loss",
+                                                                       "grad_norm")}
+    if max(diffs.values()) > TRAIN_TOL:
+        raise AssertionError(f"remat vs not: relative differences {diffs} beyond {TRAIN_TOL}")
+    report(f"{TRAIN_ARCH} train step remat vs not, from the same state: nll {a['nll']:.6f} / "
+           f"{runs[1]['m']['nll']:.6f}, z_loss {a['z_loss']:.6f}, grad norm "
+           f"{a['grad_norm']:.6f} / {runs[1]['m']['grad_norm']:.6f}; largest relative "
+           f"differences {json.dumps(diffs)} (tol {TRAIN_TOL}); flash launches a step "
+           f"{runs[0]['n']} / {runs[1]['n']}")
+
+    # ------------------------------- b. check: the plain attention forward --
+    kernel_fn = flash_ops.flash_attention
+    flash_ops.flash_attention = flash_ops.plain_attention
+    try:
+        (p, st, m), plain = step(False, params, state0)
+    finally:
+        flash_ops.flash_attention = kernel_fn
+    del p, st
+    if plain["n"]:
+        raise AssertionError(f"the plain-forward step launched flash {plain['n']} times")
+    d_loss = max(rel(m[k], a[k]) for k in ("nll", "z_loss"))
+    d_grad = rel(m["grad_norm"], a["grad_norm"])
+    if d_loss > TRAIN_TOL or d_grad > TRAIN_PLAIN_GRAD_TOL:
+        raise AssertionError(f"kernel vs plain forward: loss {d_loss:.3e} (tol {TRAIN_TOL}), "
+                             f"grad norm {d_grad:.3e} (tol {TRAIN_PLAIN_GRAD_TOL}) relative")
+    report(f"{TRAIN_ARCH} train step, flash kernel vs plain attention forward (check): nll "
+           f"{float(m['nll']):.6f}, loss {d_loss:.3e} (tol {TRAIN_TOL}) and grad norm "
+           f"{d_grad:.3e} (tol {TRAIN_PLAIN_GRAD_TOL}) relative; wall {plain['ms']:.1f} ms")
+
+    # ------------------------- c. steps on one batch; d. checkpoint and resume --
+    walls, nll = [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        p, st = params, state0
+        for i in range(TRAIN_STEPS):
+            (p, st, m), r = step(False, p, st)
+            walls.append(r)
+            nll.append(float(m["nll"]))
+            if i + 1 == TRAIN_RESUME_AT:
+                t0 = time.perf_counter()
+                ckpt.save_checkpoint(d, i + 1, {"params": p, "opt": st})
+                save_s = time.perf_counter() - t0
+        straight = p
+        del st
+        t0 = time.perf_counter()
+        restored, at, _ = ckpt.restore_checkpoint(d, {"params": params, "opt": state0})
+        load_s = time.perf_counter() - t0
+    p, st = restored["params"], restored["opt"]
+    del restored
+    for _ in range(at, TRAIN_STEPS):
+        (p, st, m), _ = step(False, p, st)
+    if not nll[-1] < nll[0]:
+        raise AssertionError(f"nll did not fall over {TRAIN_STEPS} steps on one batch: {nll}")
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(p), tree_leaves(straight)))
+    if not same or float(m["nll"]) != nll[-1]:
+        raise AssertionError(f"resumed from the step-{at} checkpoint, the params or the last "
+                             f"nll ({float(m['nll'])} vs {nll[-1]}) differ from the straight run")
+    ckpt_gb = sum(x.numel() * x.element_size() for x in tree_leaves((p, st))) / 1e9
+    report(f"{TRAIN_ARCH} train {TRAIN_STEPS} steps on one batch: nll "
+           + " ".join(f"{x:.4f}" for x in nll)
+           + f"; checkpoint after step {at} ({ckpt_gb:.2f} GB, saved in {save_s:.1f} s, "
+           f"restored in {load_s:.1f} s), steps {at + 1}-{TRAIN_STEPS} again: params bit-equal "
+           f"to the straight run")
+    del p, st, straight
+
+    # a step's work, by count: 6 x params x tokens of GEMMs (the tied head's
+    # 2 x d x vocab a token forward, its 4 backward, included; the embedding
+    # lookup is no GEMM), the flash forward on the causal pairs, and the
+    # plain dense recompute in the backward (every s x s pair, forward 2
+    # products and backward 4)
+    H, hd, tokens = cfg.num_heads, cfg.resolved_head_dim, b * s
+    gemm = 6 * n_params * tokens
+    flash = L * 4 * hd * b * H * kept_pairs(s, s)
+    recompute = L * 3 * 4 * hd * b * H * s * s
+    work = gemm + flash + recompute
+    rerun = gemm / 3 + flash  # what remat adds: the forward once more
+    ms_step = sum(r["ms"] for r in walls) / len(walls)
+    warm = runs[2]
+    report(f"{TRAIN_ARCH} train step {b}x{s} tokens (CUDA events): without remat "
+           + " / ".join(f"{r['ms']:.1f}" for r in walls) + f" ms (the steps of c, mean "
+           f"{ms_step:.1f} ms, {tokens / ms_step * 1e3:.0f} tokens/s); the path's first step "
+           f"{runs[0]['ms']:.1f} ms and first with remat {runs[1]['ms']:.1f} ms (warm-up); "
+           f"with remat, warm, {warm['ms']:.1f} ms ({warm['ms'] / ms_step:.2f}x). Peak "
+           f"memory a step without remat {max(r['peak'] for r in walls):.2f} GB allocated, "
+           f"{max(r['own'] for r in walls):.2f} GB above what it started with; with remat "
+           f"{warm['peak']:.2f} / {warm['own']:.2f} GB. By count {gemm / 1e12:.2f} TFLOP of "
+           f"GEMMs (6 x params x tokens) + {flash / 1e12:.3f} flash forward + "
+           f"{recompute / 1e12:.2f} plain attention recompute (dense: forward 2, backward 4 "
+           f"products) = {work / 1e12:.2f} TFLOP a step, {work / ms_step / 1e9:.1f} TFLOP/s; "
+           f"remat adds {rerun / 1e12:.2f} (the forward again): "
+           f"{(work + rerun) / warm['ms'] / 1e9:.1f} TFLOP/s")
+    profiled = 0
+    if profile:
+        summ = profile_window(lambda: step_fns[False](params, state0, batch), ms_step)
+        profiled = 2
+        report(f"profile {TRAIN_ARCH} train step {b}x{s}: {json.dumps(summ)}")
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    plain_steps = 1 + TRAIN_STEPS + (TRAIN_STEPS - at) + profiled  # a, c, d, the profile
+    want = {name: (L * (plain_steps + 4) if name == "flash_attention" else 0)
+            for name in kernel_mods}
+    how = (f"flash_attention {L} x {plain_steps} steps + {2 * L} x 2 steps with remat; none "
+           f"in the plain-forward check")
+    if launches != want:
+        raise AssertionError(f"training path launched {launches}, want {want} ({how})")
+    report(f"{TRAIN_ARCH} launches on the training path: {json.dumps(launches)} = {how}")
+    del params, state0
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1423,6 +1641,11 @@ def main() -> int:
         by_path[label] = drive(kernel_mods, report, args.profile)
         launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
         torch.cuda.empty_cache()
+    label = f"{TRAIN_ARCH} train"
+    by_path[label] = drive_train(kernel_mods, report, args.profile)
+    launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- timing --
     b, s = PREFILL_BATCH, PREFILL_LEN
@@ -1430,9 +1653,11 @@ def main() -> int:
     fa_shapes = []
     for label, arch, bb, ss in ((ARCH, ARCH, b, s), (ZAMBA_ARCH, ZAMBA_ARCH, b, s),
                                 (f"{PIPE_ARCH} pipeline", PIPE_ARCH, PIPE_MB, PIPE_LEN),
-                                (AUDIO_ARCH, AUDIO_ARCH, b, s)):
+                                (AUDIO_ARCH, AUDIO_ARCH, b, s), (GEMMA_ARCH, GEMMA_ARCH, b, s)):
         c = get_config(arch)
-        window = c.window if c.attn == "swa" else None  # as the model's plan sets it
+        # as the model's plan sets it; gemma3's window 1024 keeps every causal
+        # pair at s 1024, so its local layers compute what its global ones do
+        window = c.window if c.attn == "swa" else None
         fa_shapes.append(time_flash(fa_kernel, hw, label, bb, ss, c.num_heads, c.num_kv_heads,
                                     c.resolved_head_dim, window, report))
         torch.cuda.empty_cache()

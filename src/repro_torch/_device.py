@@ -10,6 +10,10 @@ from typing import Optional, Union
 
 import torch
 
+# batch entries that hold token ids: int64 on the device, as embedding and
+# gather take them
+_IDS = ("tokens", "labels")
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
@@ -19,3 +23,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "pass device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def batch_on_device(batch: dict, device: torch.device) -> dict:
+    """A batch (numpy arrays, lists or tensors) on ``device``: token ids and
+    labels as int64, every other entry (``loss_mask``, ``patch_embeds``,
+    ``frame_embeds``) in its own dtype."""
+    return {name: torch.as_tensor(v, device=device).long() if name in _IDS
+            else torch.as_tensor(v, device=device) for name, v in batch.items()}

@@ -2,7 +2,9 @@
 
 A CUDA tensor goes to the hand-written kernel at every sequence length,
 decode steps included, as the TPU branch of ``repro.kernels.rwkv6.ops``
-does; it runs or raises. A CPU tensor takes the JAX package's CPU dispatch:
+does; it runs or raises. The kernel has no gradient yet, so where autograd
+would need one the CUDA branch raises rather than return an output that
+autograd cannot trace back. A CPU tensor takes the JAX package's CPU dispatch:
 the chunked form for ``s > 1`` and the sequential recurrence for ``s == 1``.
 There is no switch and no fallback.
 """
@@ -20,6 +22,11 @@ def wkv6(r, k, v, w, u, state, *, state_out: Optional[torch.Tensor] = None):
     """Returns (y, final state); the final state is written into
     ``state_out`` when given, which may be ``state`` itself."""
     if r.is_cuda:
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (r, k, v, w, u, state)):
+            raise RuntimeError(
+                "wkv6 has no gradient on CUDA yet (ROADMAP queue 1 item 15); train rwkv "
+                "models on the CPU, or run the kernel under torch.no_grad()")
         return kernel.wkv6_cuda(r, k, v, w, u, state, state_out=state_out)
     if r.device.type != "cpu":
         raise ValueError(f"no wkv6 path for device {r.device}")

@@ -20,7 +20,7 @@ the input).
 
 API:
   init_params(cfg, seed, dtype, device)          -> params
-  forward(cfg, params, batch)                    -> (logits, aux)
+  forward(cfg, params, batch, remat=False)       -> (logits, aux)
   init_cache(cfg, batch, max_len, dtype, device) -> cache
   decode_step(cfg, params, cache, batch, pos)    -> (logits, cache)  [cache updated in place]
   forward_layers(cfg, stack, lo, hi, x)          -> x  [a pipeline stage's layers]
@@ -32,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
@@ -207,10 +208,12 @@ def _embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     return x
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict):
-    """Full-sequence forward (prefill). batch: {"tokens": (b, s)}, plus
-    {"patch_embeds": (b, P, d)} for ``patch_embed``; {"frame_embeds":
-    (b, s, d)} for ``frame_embed``.
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False):
+    """Full-sequence forward (training teacher-forcing, prefill). batch:
+    {"tokens": (b, s)}, plus {"patch_embeds": (b, P, d)} for ``patch_embed``;
+    {"frame_embeds": (b, s, d)} for ``frame_embed``. With ``remat`` each
+    layer keeps only its input for the backward and runs again there
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX).
 
     Returns (logits, aux): ``aux["moe_aux"]`` is the sum of the layers'
     load-balancing losses (fp32, 0 without MoE layers), as in JAX;
@@ -220,8 +223,11 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
     aux, dropped = 0.0, 0  # tensors from the first MoE layer on
     for blk, bparams in zip(layer_plan(cfg), params["blocks"]):
         for i in range(blk.n):
-            x, a, n = _layer_forward(cfg, blk.kind, blk.local,
-                                     _block_layer(params, blk, bparams, i), x)
+            args = (cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i), x)
+            if remat:
+                x, a, n = checkpoint(_layer_forward, *args, use_reentrant=False)
+            else:
+                x, a, n = _layer_forward(*args)
             aux, dropped = aux + a, dropped + n
     return final_logits(cfg, params, x), {
         "moe_aux": torch.as_tensor(aux, dtype=torch.float32, device=x.device),

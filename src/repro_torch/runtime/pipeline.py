@@ -38,7 +38,7 @@ import torch
 
 from .. import hw
 from .._device import resolve_device
-from ..bridge import _map
+from ..tree import tree_map
 from ..configs.base import ArchConfig
 from ..core.isa import AddrCyc, Compute, DataMove, Group, Opcode, Sync
 from ..core.program import Program, PUProgram
@@ -209,7 +209,7 @@ def stack_stage_params(cfg: ArchConfig, params: dict, plan: PipelinePlan) -> dic
         return x.reshape(S, lps, *x.shape[1:])
 
     out = dict(params)
-    out["blocks"] = [_map(restack, params["blocks"][0])]
+    out["blocks"] = [tree_map(restack, params["blocks"][0])]
     return out
 
 
@@ -273,7 +273,7 @@ class PipelineForward:
         cuda = dev.type == "cuda"
         dtype = stage_params["embed"].dtype
         blocks = stage_params["blocks"][0]
-        layers = _map(lambda x: x.flatten(0, 1), blocks)  # (S * lps, ...) views
+        layers = tree_map(lambda x: x.flatten(0, 1), blocks)  # (S * lps, ...) views
 
         # everything that crosses streams is allocated here, on the caller's
         # stream, before the stage streams start, and freed only after they

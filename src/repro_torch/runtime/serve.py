@@ -14,17 +14,10 @@ from typing import Optional
 
 import torch
 
-from .._device import resolve_device
+from .._device import batch_on_device, resolve_device
 from ..configs.base import ArchConfig
 from ..models import attention as attn
 from ..models import transformer as tf
-
-
-def _on_device(batch: dict, device: torch.device) -> dict:
-    """The batch on ``device``: ``tokens`` as int64, every other entry
-    (``patch_embeds``, ``frame_embeds``) in its own dtype."""
-    return {name: torch.as_tensor(v, device=device).long() if name == "tokens"
-            else torch.as_tensor(v, device=device) for name, v in batch.items()}
 
 
 def make_prefill(cfg: ArchConfig, device=None):
@@ -32,7 +25,7 @@ def make_prefill(cfg: ArchConfig, device=None):
 
     @torch.inference_mode()
     def prefill(params, batch):
-        logits, _ = tf.forward(cfg, params, _on_device(batch, dev))
+        logits, _ = tf.forward(cfg, params, batch_on_device(batch, dev))
         return logits
 
     return prefill
@@ -43,7 +36,7 @@ def make_serve_step(cfg: ArchConfig, device=None):
 
     @torch.inference_mode()
     def serve_step(params, caches, batch, pos):
-        return tf.decode_step(cfg, params, caches, _on_device(batch, dev), pos)
+        return tf.decode_step(cfg, params, caches, batch_on_device(batch, dev), pos)
 
     return serve_step
 

@@ -1,7 +1,10 @@
 """The CUDA kernels (flash attention, wkv6, the SSD scan, the INT8 PU GEMM)
 against their plain PyTorch versions, the pipeline executor on CUDA
-streams against the plain forward, and the MoE FFN and the patch and frame
-frontends on the card against the same code on the CPU. This file imports no JAX (the
+streams against the plain forward, the MoE FFN and the patch and frame
+frontends on the card against the same code on the CPU, and training on
+the card: the flash kernel's gradient (``ops.FlashAttention``) against the
+plain version's, the refusal of wkv6 and the SSD scan under grad, a train
+step against the same step on the CPU. This file imports no JAX (the
 machine with the card has none); every test here needs a CUDA device and
 skips without one:
 
@@ -28,7 +31,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.runtime import optimizer as opt  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime import pipeline as pp  # noqa: E402
+from repro_torch.runtime import train  # noqa: E402
 
 # (b, s, H, G, hd, window, dtype, tol): the shapes and tolerances of
 # tests/test_kernels.py:28-61, head dims 112 (zamba2-7b's shared blocks, MHA)
@@ -592,3 +598,139 @@ def test_frontier_models_on_cuda_match_cpu(cuda, arch):
         want, _ = tf.decode_step(cfg, params, caches[0], step, t)
         got, _ = tf.decode_step(cfg, cparams, caches[1], _on(step, "cuda"), t)
         torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+# --------------------------------------------------------------- training --
+# (b, s, H, G, hd, window): the main-path shapes of the gradient: qwen3-0.6b's
+# train step, gemma3-4b at hd 256 with s beyond its window (the backward
+# recomputes with the banded version), h2o-danube-3-4b at hd 120 with s
+# beyond its window (the chunked version: t > 2048)
+GRAD_SHAPES = [
+    (4, 1024, 16, 8, 128, None),
+    (1, 2048, 8, 4, 256, 1024),
+    (1, 4608, 32, 8, 120, 4096),
+]
+
+
+def _grad_inputs(b, s, H, G, hd, seed, dtype=torch.float32):
+    r = np.random.default_rng(seed)
+    arrs = (0.5 * r.standard_normal((b, s, H, hd)), 0.5 * r.standard_normal((b, s, G, hd)),
+            r.standard_normal((b, s, G, hd)), r.standard_normal((b, s, H, hd)))
+    return [torch.from_numpy(a).to("cuda", dtype) for a in arrs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,H,G,hd,window", GRAD_SHAPES)
+def test_flash_gradient_is_plain_gradient(cuda, b, s, H, G, hd, window):
+    """On tensors that need a gradient the dispatch takes ``FlashAttention``:
+    one kernel launch, the kernel's output (within 1e-4 of the plain one, as
+    at the prefill shapes) and the plain version's gradients (its backward
+    recomputes them: 1e-5, the same ops on the same inputs)."""
+    q, k, v, g = _grad_inputs(b, s, H, G, hd, seed=s + hd)
+    args = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = kernel.launches
+    out = ops.flash_attention(*args, causal=True, window=window)
+    assert kernel.launches - before == 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, args, g)
+    assert kernel.launches - before == 1  # the backward launches none
+    ref_args = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = ops.plain_attention(*ref_args, causal=True, window=window)
+    want = torch.autograd.grad(ref, ref_args, g)
+    torch.testing.assert_close(out.detach(), ref.detach(), rtol=1e-4, atol=1e-4)
+    for a, w in zip(got, want):
+        assert float(a.abs().max()) > 0
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,window", [(40, None), (72, 24)])
+def test_flash_gradcheck(cuda, s, window):
+    """gradcheck in float64 on the plain version the backward recomputes
+    (dense at s 40, banded at s 72 >= 2 x window 24), then the Function in
+    fp32 on the kernel against those float64 gradients at 1e-4."""
+    q, k, v, g = _grad_inputs(1, s, 4, 2, 32, seed=s, dtype=torch.float64)
+    assert ops.plain_path(s, s, True, window) == ("dense" if window is None else "banded")
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    assert torch.autograd.gradcheck(
+        lambda a, b_, c: ops.plain_attention(a, b_, c, causal=True, window=window), plain,
+        fast_mode=True)
+    want = torch.autograd.grad(ops.plain_attention(*plain, causal=True, window=window),
+                               plain, g)
+    args = [x.float().requires_grad_() for x in (q, k, v)]
+    out = ops.FlashAttention.apply(*args, True, window, None)
+    got = torch.autograd.grad(out, args, g.float())
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.double(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_qwen3_layer_gives_wq_a_gradient(cuda):
+    """The fault this gradient repairs: one reduced qwen3 layer on the card,
+    whose attention output came from the kernel, gives ``wq`` (and every
+    other leaf upstream of it) a non-zero gradient equal to the CPU's at
+    1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("qwen3-0.6b").reduced(), num_layers=1)
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 48)))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.detach().to(dev, copy=True).requires_grad_(), params)
+        leaves = tree_leaves(p)
+        logits, _ = tf.forward(cfg, p, {"tokens": toks.to(dev)})
+        logits.square().mean().backward()
+        grads.append([x.grad for x in leaves])
+        wq = p["blocks"][0]["attn"]["wq"]
+    assert float(wq.grad.abs().max()) > 0
+    for a, w in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_and_ssd_scan_refuse_grad(cuda):
+    """Neither recurrence has a gradient on the card yet: under grad they
+    raise, and without it (or under no_grad) they run."""
+    args = _wkv6_inputs(1, 8, 2, 16, seed=0)
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient on CUDA"):
+        wkv6_ops.wkv6(*args)
+    with torch.no_grad():
+        wkv6_ops.wkv6(*args)
+    xs = _ssd_inputs(1, 8, 2, 16, 8, seed=0)
+    xs[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient on CUDA"):
+        ssd_ops.ssd_scan(*xs)
+    with torch.no_grad():
+        ssd_ops.ssd_scan(*xs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,S,remat", [("qwen3-0.6b", 64, True), ("gemma3-4b", 160, False),
+                                          ("dbrx-132b", 64, False)])
+def test_train_step_on_cuda_matches_cpu(cuda, arch, S, remat):
+    """One reduced AdamW step on the card (the flash kernel forward, the plain
+    gradient; gemma3 at s 160 beyond its window 64) against the same step on
+    the CPU: metrics at 1e-5 relative, moments at 1e-4 of each leaf's
+    largest; flash launches once a layer (twice with remat)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    c = opt.AdamWConfig(lr=1e-3, warmup_steps=0)
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    r = np.random.default_rng(4)
+    toks = r.integers(0, cfg.vocab_size, (2, S + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _on(params, dev)
+        before = kernel.launches
+        step = train.make_train_step(cfg, c, remat=remat, device=dev)
+        _, st, m = step(p, opt.adamw_init(c, p), batch)
+        out[dev] = (st, {k: float(v) for k, v in m.items()}, kernel.launches - before)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == cfg.num_layers * (2 if remat else 1)
+    for k, w in out["cpu"][1].items():
+        assert out["cuda"][1][k] == pytest.approx(w, rel=1e-5, abs=1e-7), k
+    for name in ("m", "v"):
+        for a, w in zip(tree_leaves(out["cuda"][0][name]),
+                        tree_leaves(out["cpu"][0][name])):
+            torch.testing.assert_close(a.cpu(), w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()) + 1e-30)
