@@ -16,7 +16,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    GEMM bit for bit, w row-major and column-major, at the TestGemmInt8
    inputs and at few-block long-K shapes that split K, and the int32 wrap
    at K = 2^17);
-3. seven serving paths at full width, fp32, random weights from a seed, one
+3. eight serving paths at full width, fp32, random weights from a seed, one
    after the other (each one's weights are freed before the next):
    qwen3-0.6b (28 layers, the flash-attention kernel), gemma3-4b (34 layers,
    window 1024 on 5 of every 6, hd 256, a tied 262144-row head), rwkv6-7b (32 layers,
@@ -25,17 +25,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    flash-attention kernels), dbrx-132b (MoE, 16 experts top-4; depth cut
    to 4 of 40 layers to fit the card), internvl2-76b (a 256-embedding patch
    prefix at prefill; depth cut to 8 of 80 layers) and musicgen-large (frame
-   embeddings, MHA at hd 64; 48 layers, depth not cut), each of the last
-   three through flash attention. Each runs
+   embeddings, MHA at hd 64; 48 layers, depth not cut) and grok-1-314b (MoE,
+   8 geglu experts of d_ff 32768 top-2; depth cut to 3 of 64 layers), each
+   of the last four through flash attention. Each runs
    a. prefill: 4 prompts x 1024 tokens (or frames) through ``make_prefill``
       (internvl2: with the patch prefix, which must change the logits);
    b. consistency: one 32-token prompt decoded token by token through
       ``make_serve_step`` reproduces the prefill logits (and the same prompt
       prefilled in a batch of 4 shows how far the forward agrees with
-      itself). dbrx drops (token, k) pairs at capacity in prefill and never
-      in decode, so it is held to its prefill on a 4-token prompt (one
-      dispatch group no longer than the capacity floor 4) and its 32-token
-      prompt is reported, dropped pairs and all;
+      itself). dbrx and grok drop (token, k) pairs at capacity in prefill
+      and never in decode, so each is held to its prefill on a 4-token
+      prompt (one dispatch group no longer than the capacity floor 4) and
+      its 32-token prompt is reported, dropped pairs and all;
    c. serving: ``ServingEngine`` (4 slots) drains 8 requests (not for
       musicgen: the engine takes tokens only, as JAX's does);
    d. with ``--profile`` only: where the time goes, from ``torch.profiler``
@@ -49,16 +50,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tokens as CUDA events, 4 microbatches of 1 x 4608 tokens (beyond the
    window), against the plain forward on the same tokens at 2e-3, its token
    operations equal to what the programs prescribe;
-6. training: qwen3-0.6b at full width and depth, fp32, AdamW, 4 x 1024
-   tokens of the token stream a step: one step without remat and two with
-   from the same state (the same loss and grad norm), the same step with the
-   plain attention forward (a check), 5 steps on one batch (the nll falls),
-   a checkpoint after step 2 restored and steps 3-5 run again (params
-   bit-equal); flash attention forward a layer a step (and again with remat),
-   its backward the plain version's gradient;
+6. training, fp32, AdamW, 4 x 1024 tokens of the token stream a step:
+   qwen3-0.6b at full width and depth, rwkv6-7b (6 of 32 layers) and
+   zamba2-7b (12 of 81 layers, two shared-attention occurrences) at full
+   width: one step without remat and two with from the same state (the same
+   loss and grad norm), the same step with the plain forward of the path's
+   recurrence (attention for qwen3; a check, rwkv held to its measured
+   re-batching noise where that is larger), 5 steps on one batch (the nll
+   falls); for qwen3 a checkpoint after step 2 restored and steps 3-5 run
+   again (params bit-equal). Each kernel runs forward once a layer of its
+   kind a step (and again with remat); each backward is a plain version's
+   gradient, recomputed (``FlashAttention``, ``WKV6``, ``SSDScan``);
 7. timing: each kernel, its plain version and the PyTorch library call (where
    one exists) at its main-path shapes (flash attention at five, wkv6 at the
-   prefill and at the decode step), beside the card's bound; each row of
+   prefill and at the decode step), beside the card's bound, and the
+   backward of wkv6 and of the SSD scan at the training shape; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
    the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch.
@@ -81,6 +87,7 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from contextlib import ExitStack, contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -93,17 +100,22 @@ RWKV_ARCH = "rwkv6-7b"
 ZAMBA_ARCH = "zamba2-7b"
 MOE_ARCH, VLM_ARCH, AUDIO_ARCH = "dbrx-132b", "internvl2-76b", "musicgen-large"
 GEMMA_ARCH = "gemma3-4b"
+GROK_ARCH = "grok-1-314b"
 # depth cuts, full width: fp32 dbrx-132b takes 13.0 GB a layer (16 experts of
 # 3 x 6144 x 10752) + 4.9 GB of embedding and head, internvl2-76b 3.42 GB a
-# layer + 8.7 GB; 4 and 8 layers leave room for the activations in 80 GB
-DEPTH = {MOE_ARCH: 4, VLM_ARCH: 8}
+# layer + 8.7 GB; 4 and 8 layers leave room for the activations in 80 GB.
+# grok-1-314b takes 19.68 GB a layer (8 geglu experts of 3 x 6144 x 32768,
+# 19.33 GB, and attention) + 6.44 GB of embedding and head: 3 layers are
+# 65.5 GB, and its prefill adds ~6-7 GB (dbrx's 4.6 GB above its params, with
+# 1.5x wider expert activations and a 131072-row head), a ~72 GB peak
+DEPTH = {MOE_ARCH: 4, VLM_ARCH: 8, GROK_ARCH: 3}
 # launches of each kernel per prefill call and per decode step, by path:
 # qwen3-0.6b has 28 attention layers, gemma3-4b 34 (window 1024 on 5 of every
 # 6); rwkv6-7b 32 rwkv layers, whose decode runs the wkv6 kernel too;
 # zamba2-7b 81 mamba layers (SSD scan) and 13 shared-attention occurrences,
 # and its decode is plain tensor code; dbrx-132b and internvl2-76b an
-# attention layer each of their 4 and 8, musicgen-large 48; their decode is
-# plain tensor code
+# attention layer each of their 4 and 8 (grok-1-314b its 3), musicgen-large
+# 48; their decode is plain tensor code
 PATHS = [
     (ARCH, {"flash_attention": 28}, {}),
     (GEMMA_ARCH, {"flash_attention": 34}, {}),
@@ -112,6 +124,7 @@ PATHS = [
     (MOE_ARCH, {"flash_attention": DEPTH[MOE_ARCH]}, {}),
     (VLM_ARCH, {"flash_attention": DEPTH[VLM_ARCH]}, {}),
     (AUDIO_ARCH, {"flash_attention": 48}, {}),
+    (GROK_ARCH, {"flash_attention": DEPTH[GROK_ARCH]}, {}),
 ]
 PREFILL_BATCH, PREFILL_LEN, PREFILL_ITERS = 4, 1024, 3
 CONSISTENCY_LEN = 32
@@ -202,10 +215,24 @@ PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
 # backward recomputes attention with the plain version, which launches none.
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_RESUME_AT = ARCH, 4, 1024, 5, 2
 TRAIN_LR = 1e-4
+# the training paths, (arch, depth cut or None), in this order; rwkv6-7b and
+# zamba2-7b at full width, their depth cut so that fp32 AdamW (16 B a param:
+# params, grads, m, v) and a step fit the card beside the state the path
+# keeps to start each phase from: rwkv6-7b 0.2197 B params a layer + 0.537 B
+# of embedding and head, 6 of 32 layers = 1.855 B, 29.7 GB; zamba2-7b 12 of
+# 81 layers (two shared-attention occurrences, so flash's gradient runs too)
+# = 1.58 B, 25.3 GB. wkv6 launches once an rwkv layer a step, the SSD scan
+# once a mamba layer, flash once an attention layer or shared occurrence;
+# each twice with remat; each backward recomputes a plain version and
+# launches none (PERF.md section 4)
+TRAIN_PATHS = [(TRAIN_ARCH, None), (RWKV_ARCH, 6), (ZAMBA_ARCH, 12)]
 # remat vs not: the same kernels on the same inputs, so ~0 is expected; the
 # kernel's forward vs the plain one: ~1e-6 relative on the loss (the kernel's
 # fp32 sums in another order), and the gradient flows through activations
-# that differ by as much
+# that differ by as much. Random rwkv layers amplify fp32 rounding: at 6
+# layers the plain fp32 recurrence's own step is 9.5e-5 off the grad norm of
+# the same step with the recurrence in float64, and the kernel's 4.7e-5
+# (PERF.md section 6), so a recurrence's check also reads that noise
 TRAIN_TOL, TRAIN_PLAIN_GRAD_TOL = 1e-5, 1e-4
 
 
@@ -1000,6 +1027,28 @@ def time_wkv6(wkv6_kernel, hw, label, b, s, H, P, report) -> dict:
             "library_ms": None, "timed": timed, "plan": pl}
 
 
+def time_backward(name, apply, args, what, report) -> dict:
+    """The backward of a kernel's autograd Function at the training shape
+    (TRAIN_BATCH x TRAIN_LEN, the model's heads): one forward, then its
+    backward timed with CUDA events, the graph kept between calls, random
+    cotangents on every output; the forward's time beside it."""
+    live = [x.clone().requires_grad_() for x in args]
+    fwd_ms = cuda_ms(lambda: apply(*live), 3, warmup=1)
+    out = apply(*live)
+    outs = out if isinstance(out, tuple) else (out,)
+    cot = [torch.randn_like(o) for o in outs]
+    ms = cuda_ms(lambda: torch.autograd.grad(outs, live, cot, retain_graph=True), 3,
+                 warmup=1)
+    report(f"timing {name} backward at {tuple(args[0].shape)}: {ms:.2f} ms ({what}); the "
+           f"kernel's forward {fwd_ms:.4f} ms")
+    return {"backward_ms": ms, "backward_of": what, "backward_shape": list(args[0].shape)}
+
+
+def by_kernel(by_path: dict, name: str) -> dict:
+    """A kernel's launches on each path that launched it."""
+    return {label: counts[name] for label, counts in by_path.items() if counts[name]}
+
+
 def gemm_inputs(m, n, k, seed, residual=False, bias_range=1000):
     """int8 a (m, k) and w (k, n) uniform on [-128, 128), int32 bias on
     [-bias_range, bias_range), int8 residual (m, n), from a seeded generator
@@ -1393,25 +1442,94 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
     return launches
 
 
-def drive_train(kernel_mods, report, profile=False) -> dict:
-    """The training path at full width and depth: TRAIN_ARCH in fp32 with
-    AdamW, TRAIN_BATCH x TRAIN_LEN tokens of the token stream a step.
+def launches_a_forward(cfg) -> dict:
+    """Each kernel's launches in one forward of ``cfg``: flash attention a
+    dense, MoE or shared-attention layer, wkv6 an rwkv layer, the SSD scan a
+    mamba layer (``layer_plan``)."""
+    from repro_torch.models.transformer import layer_plan
+
+    kinds = {"rwkv": "wkv6", "mamba": "ssd_scan"}
+    out = defaultdict(int)
+    for blk in layer_plan(cfg):
+        out[kinds.get(blk.kind, "flash_attention")] += blk.n
+    return dict(out)
+
+
+def plain_forward(cfg):
+    """The check (b) of a training path: where the path's recurrence
+    (attention where there is none) is forced to a plain version, that
+    version, its twin in float64 (None for attention), the kernel it
+    replaces and the plain version's name. rwkv and mamba replace the
+    kernel inside their autograd Functions, so the backward (the same plain
+    recompute) and its memory stay a layer's: rwkv by the sequential
+    ``wkv6_reference``, the recurrence the kernel runs (the chunked form is
+    not that recurrence at the full-width init), mamba by ``ssd_chunked``;
+    attention takes ``plain_attention`` in place of the whole dispatch."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_reference
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    def f64(fn):
+        return lambda *a: fn(*(x.double() for x in a))
+
+    if cfg.family == "ssm":
+        return (wkv6_kernel, "wkv6_cuda",
+                lambda r, k, v, w, u, state, **_: wkv6_reference(r, k, v, w, u, state),
+                lambda r, k, v, w, u, state, **_: tuple(
+                    x.float() for x in f64(wkv6_reference)(r, k, v, w, u, state)),
+                "wkv6", "wkv6_reference")
+    if cfg.family == "hybrid":
+        return (ssd_kernel, "ssd_scan_cuda", lambda *a, **_: (ssd_chunked(*a), None),
+                lambda *a, **_: (f64(ssd_chunked)(*a).float(), None), "ssd_scan",
+                "ssd_chunked")
+    return (flash_ops, "flash_attention", flash_ops.plain_attention, None, "flash_attention",
+            "plain_attention")
+
+
+@contextmanager
+def swapped(obj, attr, value):
+    kept = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, kept)
+
+
+def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
+    """A training path at full width (depth cut to ``depth`` layers where it
+    is given): ``arch`` in fp32 with AdamW, TRAIN_BATCH x TRAIN_LEN tokens of
+    the token stream a step.
     a. one step from the same state without remat and two with (the second
        timed warm): the same loss and grad norm (TRAIN_TOL relative);
-    b. a check, not the main path: the same step with the attention forward
-       forced to the plain version, loss at TRAIN_TOL and grad norm at
-       TRAIN_PLAIN_GRAD_TOL relative to (a);
+    b. a check, not the main path: the same step with the path's recurrence
+       (attention where there is none) forced to its plain version
+       (``plain_forward``), loss at TRAIN_TOL and grad norm at
+       TRAIN_PLAIN_GRAD_TOL relative to (a). rwkv and mamba also measure
+       the plain step's own noise: against the same step with the
+       recurrence in float64 (its fp32 rounding) and against itself
+       re-batched (the loss of the batch against the mean of its halves'
+       losses, the grad norm against a step of two microbatches); each is
+       held to the larger of its gate, the re-batched noise and twice the
+       rounding (kernel and plain are two fp32 roundings of one recurrence);
     c. TRAIN_STEPS steps on one repeated batch: the nll falls;
-    d. a checkpoint written after step TRAIN_RESUME_AT, restored, and the
-       steps after it run again: params bit-equal to (c)'s.
-    With ``profile``, a profiler window over one more step without remat.
-    Every launch count is set to 0 just before (a) and read after (d) (or
-    the profiled step): flash attention once a layer a step, twice with
-    remat, never in (b); the other kernels never. Returns the counts."""
+    d. TRAIN_ARCH only: a checkpoint written after step TRAIN_RESUME_AT,
+       restored, and the steps after it run again: params bit-equal to (c)'s.
+    With ``profile``, a profiler window over one more step without remat,
+    and one more step with each kernel's backward recompute timed, from
+    the state (c) or (d) ends with. Only TRAIN_ARCH keeps the first state
+    through (c): fp32 AdamW state is 12 B a param, and rwkv6's 22.6 GB held
+    twice beside a step's new state and gradients passes the card.
+    Every launch count is set to 0 just before (a) and read at the end:
+    each kernel its ``launches_a_forward`` a step, twice with remat, the
+    kernel that (b) replaces none there; the other kernels never. Returns
+    the counts."""
     import tempfile
 
+    from repro_torch._device import batch_on_device
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import kept_pairs
     from repro_torch.runtime import checkpoint as ckpt
     from repro_torch.runtime import train
@@ -1419,37 +1537,43 @@ def drive_train(kernel_mods, report, profile=False) -> dict:
     from repro_torch.runtime.optimizer import AdamWConfig
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(TRAIN_ARCH)
+    full = get_config(arch)
+    cfg = full if depth is None else replace(full, num_layers=depth)
     L, b, s = cfg.num_layers, TRAIN_BATCH, TRAIN_LEN
+    per = launches_a_forward(cfg)
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
     torch.cuda.reset_peak_memory_stats()
     params, state0 = train.init_train_state(cfg, opt_cfg, seed=SEED, dtype=torch.float32)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    batch = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
-                                   seed=SEED)).next()
+    batch = batch_on_device(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=SEED)).next(),
+        torch.device("cuda"))
     step_fns = {remat: train.make_train_step(cfg, opt_cfg, remat=remat)
                 for remat in (False, True)}
-    fa = kernel_mods["flash_attention"]
-    print(f"{TRAIN_ARCH} training: {L} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+    held = torch.cuda.memory_allocated() / 1e9
+    layers = f"{L} of {full.num_layers} layers (depth cut)" if depth else f"{L} layers"
+    print(f"{arch} training: {layers}, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e6:.1f}M params fp32, AdamW (lr {TRAIN_LR}, no warmup) fp32 moments, "
-          f"{b} x {s} tokens a step from the token stream; "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held by params and optimizer state")
+          f"{b} x {s} tokens a step from the token stream; {held:.2f} GB held by params and "
+          f"optimizer state ({16 * n_params / 1e9:.2f} GB with a step's gradients at 16 B a "
+          f"param); kernel launches a forward {json.dumps(per)}")
 
-    def step(remat, p, st):
+    def step(fn, p, st):
         """One step: its outputs, wall (CUDA events), the allocator's peak
         and that peak above what was allocated before the step (GB), and
-        its flash launches."""
+        each kernel's launches."""
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        before = fa.launches
+        before = {name: mod.launches for name, mod in kernel_mods.items()}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = step_fns[remat](p, st, batch)
+        out = fn(p, st, batch)
         end.record()
         end.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        n = {name: mod.launches - before[name] for name, mod in kernel_mods.items()}
         return out, dict(ms=start.elapsed_time(end), peak=peak / 1e9, own=(peak - base) / 1e9,
-                         n=fa.launches - before)
+                         n={name: k for name, k in n.items() if k})
 
     def rel(x, y):
         return abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
@@ -1459,121 +1583,203 @@ def drive_train(kernel_mods, report, profile=False) -> dict:
     # ------------------------------------------------- a. remat or not --
     runs = []
     for remat in (False, True, True):
-        (p, st, m), r = step(remat, params, state0)
+        (p, st, m), r = step(step_fns[remat], params, state0)
         runs.append(dict(r, remat=remat, m={k: float(v) for k, v in m.items()}))
         del p, st
     for r in runs:
-        if r["n"] != L * (2 if r["remat"] else 1):
-            raise AssertionError(f"train step (remat={r['remat']}) launched flash {r['n']} "
-                                 f"times, want {L * (2 if r['remat'] else 1)}")
+        want = {name: n * (2 if r["remat"] else 1) for name, n in per.items()}
+        if r["n"] != want:
+            raise AssertionError(f"{arch} train step (remat={r['remat']}) launched {r['n']}, "
+                                 f"want {want}")
         if not all(np.isfinite(v) for v in r["m"].values()):
-            raise AssertionError(f"train step (remat={r['remat']}) metrics {r['m']}")
+            raise AssertionError(f"{arch} train step (remat={r['remat']}) metrics {r['m']}")
     a = runs[0]["m"]
     diffs = {k: max(rel(r["m"][k], a[k]) for r in runs[1:]) for k in ("nll", "z_loss",
                                                                        "grad_norm")}
     if max(diffs.values()) > TRAIN_TOL:
-        raise AssertionError(f"remat vs not: relative differences {diffs} beyond {TRAIN_TOL}")
-    report(f"{TRAIN_ARCH} train step remat vs not, from the same state: nll {a['nll']:.6f} / "
+        raise AssertionError(f"{arch} remat vs not: relative differences {diffs} beyond "
+                             f"{TRAIN_TOL}")
+    report(f"{arch} train step remat vs not, from the same state: nll {a['nll']:.6f} / "
            f"{runs[1]['m']['nll']:.6f}, z_loss {a['z_loss']:.6f}, grad norm "
            f"{a['grad_norm']:.6f} / {runs[1]['m']['grad_norm']:.6f}; largest relative "
-           f"differences {json.dumps(diffs)} (tol {TRAIN_TOL}); flash launches a step "
-           f"{runs[0]['n']} / {runs[1]['n']}")
+           f"differences {json.dumps(diffs)} (tol {TRAIN_TOL}); launches a step "
+           f"{json.dumps(runs[0]['n'])} / with remat {json.dumps(runs[1]['n'])}")
 
-    # ------------------------------- b. check: the plain attention forward --
-    kernel_fn = flash_ops.flash_attention
-    flash_ops.flash_attention = flash_ops.plain_attention
-    try:
-        (p, st, m), plain = step(False, params, state0)
-    finally:
-        flash_ops.flash_attention = kernel_fn
-    del p, st
-    if plain["n"]:
-        raise AssertionError(f"the plain-forward step launched flash {plain['n']} times")
+    # ---------------------------------- b. check: the plain forward --
+    mod, attr, plain_fn, plain64_fn, forced, plain_name = plain_forward(cfg)
+    loss_tol, grad_tol, noise = TRAIN_TOL, TRAIN_PLAIN_GRAD_TOL, ""
+    with swapped(mod, attr, plain_fn):
+        (p, st, m), plain = step(step_fns[False], params, state0)
+        del p, st
     d_loss = max(rel(m[k], a[k]) for k in ("nll", "z_loss"))
     d_grad = rel(m["grad_norm"], a["grad_norm"])
-    if d_loss > TRAIN_TOL or d_grad > TRAIN_PLAIN_GRAD_TOL:
-        raise AssertionError(f"kernel vs plain forward: loss {d_loss:.3e} (tol {TRAIN_TOL}), "
-                             f"grad norm {d_grad:.3e} (tol {TRAIN_PLAIN_GRAD_TOL}) relative")
-    report(f"{TRAIN_ARCH} train step, flash kernel vs plain attention forward (check): nll "
-           f"{float(m['nll']):.6f}, loss {d_loss:.3e} (tol {TRAIN_TOL}) and grad norm "
-           f"{d_grad:.3e} (tol {TRAIN_PLAIN_GRAD_TOL}) relative; wall {plain['ms']:.1f} ms")
+    if plain64_fn is not None:
+        # the plain step's own noise: the recurrence's fp32 rounding (the
+        # same step with the recurrence in float64, near the exact one), and
+        # the step re-batched (the loss of the batch against the mean of its
+        # halves' losses; the grad norm against two microbatches)
+        with swapped(mod, attr, plain64_fn):
+            (p, st, m64), _ = step(step_fns[False], params, state0)
+            del p, st
+        with swapped(mod, attr, plain_fn):
+            (p, st, m2), _ = step(train.make_train_step(cfg, opt_cfg, remat=False,
+                                                        microbatch=2), params, state0)
+            del p, st
+            with torch.no_grad():
+                whole = train.loss_fn(cfg, params, batch, remat=False)[1]
+                halves = [train.loss_fn(cfg, params, {k: v[i:i + b // 2] for k, v in
+                                                      batch.items()}, remat=False)[1]
+                          for i in (0, b // 2)]
+        round_loss = max(rel(m[k], m64[k]) for k in ("nll", "z_loss"))
+        round_grad = rel(m["grad_norm"], m64["grad_norm"])
+        batch_loss = max(rel((halves[0][k] + halves[1][k]) / 2, whole[k])
+                         for k in ("nll", "z_loss"))
+        batch_grad = rel(m2["grad_norm"], m["grad_norm"])
+        # kernel and plain are two fp32 evaluations of one recurrence, each
+        # off the exact one by about the plain's rounding: up to twice it apart
+        loss_tol = max(TRAIN_TOL, batch_loss, 2 * round_loss)
+        grad_tol = max(TRAIN_PLAIN_GRAD_TOL, batch_grad, 2 * round_grad)
+        exact_loss = max(rel(a[k], m64[k]) for k in ("nll", "z_loss"))
+        exact_grad = rel(a["grad_norm"], m64["grad_norm"])
+        noise = (f"; the plain step's noise: its recurrence in float64 moves the loss "
+                 f"{round_loss:.3e} and the grad norm {round_grad:.3e}, re-batched {batch_loss:.3e}"
+                 f" / {batch_grad:.3e}, so held to max(gate, re-batched, 2 x float64) = "
+                 f"{loss_tol:.3e} / {grad_tol:.3e} (gates {TRAIN_TOL} / {TRAIN_PLAIN_GRAD_TOL}); "
+                 f"the kernel's step vs the float64 one: loss {exact_loss:.3e}, grad norm "
+                 f"{exact_grad:.3e}")
+        del whole, halves
+    want = {name: n for name, n in per.items() if name != forced}
+    if plain["n"] != want:
+        raise AssertionError(f"{arch} plain-forward step launched {plain['n']}, want {want}")
+    if d_loss > loss_tol or d_grad > grad_tol:
+        raise AssertionError(f"{arch} kernel vs plain forward: loss {d_loss:.3e} (tol "
+                             f"{loss_tol:.3e}), grad norm {d_grad:.3e} (tol {grad_tol:.3e}) "
+                             f"relative{noise}")
+    report(f"{arch} train step, {forced} kernel vs {plain_name} forward (check): nll "
+           f"{float(m['nll']):.6f}, loss {d_loss:.3e} (tol {loss_tol:.3e}) and grad norm "
+           f"{d_grad:.3e} (tol {grad_tol:.3e}) relative; wall {plain['ms']:.1f} ms{noise}")
 
     # ------------------------- c. steps on one batch; d. checkpoint and resume --
     walls, nll = [], []
+    resumed = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
         p, st = params, state0
+        if arch != TRAIN_ARCH:  # only (d) starts from it again: free it as (c) steps on
+            params = state0 = None
         for i in range(TRAIN_STEPS):
-            (p, st, m), r = step(False, p, st)
+            (p, st, m), r = step(step_fns[False], p, st)
             walls.append(r)
             nll.append(float(m["nll"]))
-            if i + 1 == TRAIN_RESUME_AT:
+            if arch == TRAIN_ARCH and i + 1 == TRAIN_RESUME_AT:
                 t0 = time.perf_counter()
                 ckpt.save_checkpoint(d, i + 1, {"params": p, "opt": st})
                 save_s = time.perf_counter() - t0
-        straight = p
-        del st
-        t0 = time.perf_counter()
-        restored, at, _ = ckpt.restore_checkpoint(d, {"params": params, "opt": state0})
-        load_s = time.perf_counter() - t0
-    p, st = restored["params"], restored["opt"]
-    del restored
-    for _ in range(at, TRAIN_STEPS):
-        (p, st, m), _ = step(False, p, st)
-    if not nll[-1] < nll[0]:
-        raise AssertionError(f"nll did not fall over {TRAIN_STEPS} steps on one batch: {nll}")
-    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(p), tree_leaves(straight)))
-    if not same or float(m["nll"]) != nll[-1]:
-        raise AssertionError(f"resumed from the step-{at} checkpoint, the params or the last "
-                             f"nll ({float(m['nll'])} vs {nll[-1]}) differ from the straight run")
-    ckpt_gb = sum(x.numel() * x.element_size() for x in tree_leaves((p, st))) / 1e9
-    report(f"{TRAIN_ARCH} train {TRAIN_STEPS} steps on one batch: nll "
-           + " ".join(f"{x:.4f}" for x in nll)
-           + f"; checkpoint after step {at} ({ckpt_gb:.2f} GB, saved in {save_s:.1f} s, "
-           f"restored in {load_s:.1f} s), steps {at + 1}-{TRAIN_STEPS} again: params bit-equal "
-           f"to the straight run")
-    del p, st, straight
+        if not nll[-1] < nll[0]:
+            raise AssertionError(f"{arch} nll did not fall over {TRAIN_STEPS} steps on one "
+                                 f"batch: {nll}")
+        steps_msg = f"{arch} train {TRAIN_STEPS} steps on one batch: nll " + " ".join(
+            f"{x:.4f}" for x in nll)
+        if arch == TRAIN_ARCH:
+            straight = p
+            del st
+            t0 = time.perf_counter()
+            restored, at, _ = ckpt.restore_checkpoint(d, {"params": params, "opt": state0})
+            load_s = time.perf_counter() - t0
+            p, st = restored["params"], restored["opt"]
+            del restored
+            for _ in range(at, TRAIN_STEPS):
+                (p, st, m), _ = step(step_fns[False], p, st)
+            resumed = TRAIN_STEPS - at
+            same = all(torch.equal(x, y) for x, y in zip(tree_leaves(p), tree_leaves(straight)))
+            if not same or float(m["nll"]) != nll[-1]:
+                raise AssertionError(f"resumed from the step-{at} checkpoint, the params or "
+                                     f"the last nll ({float(m['nll'])} vs {nll[-1]}) differ "
+                                     f"from the straight run")
+            ckpt_gb = sum(x.numel() * x.element_size() for x in tree_leaves((p, st))) / 1e9
+            steps_msg += (f"; checkpoint after step {at} ({ckpt_gb:.2f} GB, saved in "
+                          f"{save_s:.1f} s, restored in {load_s:.1f} s), steps {at + 1}-"
+                          f"{TRAIN_STEPS} again: params bit-equal to the straight run")
+            del straight
+    report(steps_msg)
 
-    # a step's work, by count: 6 x params x tokens of GEMMs (the tied head's
-    # 2 x d x vocab a token forward, its 4 backward, included; the embedding
-    # lookup is no GEMM), the flash forward on the causal pairs, and the
-    # plain dense recompute in the backward (every s x s pair, forward 2
-    # products and backward 4)
+    # a step's work, by count: 6 x (matmul params) x tokens of GEMMs (a tied
+    # head's 2 x d x vocab a token forward, its 4 backward, included; an
+    # untied embedding lookup is no GEMM), the flash forward on the causal
+    # pairs and the plain dense recompute in the backward (every s x s pair,
+    # forward 2 products and backward 4) on each attention layer; the
+    # recurrences' own work (under 1 % of a step by count) is left out
+    n_attn = per.get("flash_attention", 0)
     H, hd, tokens = cfg.num_heads, cfg.resolved_head_dim, b * s
-    gemm = 6 * n_params * tokens
-    flash = L * 4 * hd * b * H * kept_pairs(s, s)
-    recompute = L * 3 * 4 * hd * b * H * s * s
+    embed = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    gemm = 6 * (n_params - embed) * tokens
+    flash = n_attn * 4 * hd * b * H * kept_pairs(s, s)
+    recompute = n_attn * 3 * 4 * hd * b * H * s * s
     work = gemm + flash + recompute
     rerun = gemm / 3 + flash  # what remat adds: the forward once more
     ms_step = sum(r["ms"] for r in walls) / len(walls)
     warm = runs[2]
-    report(f"{TRAIN_ARCH} train step {b}x{s} tokens (CUDA events): without remat "
+    report(f"{arch} train step {b}x{s} tokens (CUDA events): without remat "
            + " / ".join(f"{r['ms']:.1f}" for r in walls) + f" ms (the steps of c, mean "
            f"{ms_step:.1f} ms, {tokens / ms_step * 1e3:.0f} tokens/s); the path's first step "
            f"{runs[0]['ms']:.1f} ms and first with remat {runs[1]['ms']:.1f} ms (warm-up); "
            f"with remat, warm, {warm['ms']:.1f} ms ({warm['ms'] / ms_step:.2f}x). Peak "
            f"memory a step without remat {max(r['peak'] for r in walls):.2f} GB allocated, "
            f"{max(r['own'] for r in walls):.2f} GB above what it started with; with remat "
-           f"{warm['peak']:.2f} / {warm['own']:.2f} GB. By count {gemm / 1e12:.2f} TFLOP of "
-           f"GEMMs (6 x params x tokens) + {flash / 1e12:.3f} flash forward + "
-           f"{recompute / 1e12:.2f} plain attention recompute (dense: forward 2, backward 4 "
-           f"products) = {work / 1e12:.2f} TFLOP a step, {work / ms_step / 1e9:.1f} TFLOP/s; "
-           f"remat adds {rerun / 1e12:.2f} (the forward again): "
-           f"{(work + rerun) / warm['ms'] / 1e9:.1f} TFLOP/s")
+           f"{warm['peak']:.2f} / {warm['own']:.2f} GB (card "
+           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB). By count "
+           f"{gemm / 1e12:.2f} TFLOP of GEMMs (6 x matmul params x tokens) + "
+           f"{flash / 1e12:.3f} flash forward + {recompute / 1e12:.2f} plain attention "
+           f"recompute (dense: forward 2, backward 4 products) = {work / 1e12:.2f} TFLOP a "
+           f"step, {work / ms_step / 1e9:.1f} TFLOP/s; remat adds {rerun / 1e12:.2f} (the "
+           f"forward again): {(work + rerun) / warm['ms'] / 1e9:.1f} TFLOP/s")
     profiled = 0
     if profile:
-        summ = profile_window(lambda: step_fns[False](params, state0, batch), ms_step)
-        profiled = 2
-        report(f"profile {TRAIN_ARCH} train step {b}x{s}: {json.dumps(summ)}")
+        summ = profile_window(lambda: step_fns[False](p, st, batch), ms_step)
+        report(f"profile {arch} train step {b}x{s}: {json.dumps(summ)}")
+        # each kernel's backward (the plain recompute) timed inside one step
+        from repro_torch.kernels.flash_attention.ops import FlashAttention
+        from repro_torch.kernels.rwkv6.ops import WKV6
+        from repro_torch.kernels.ssd_scan.ops import SSDScan
+
+        spent = defaultdict(list)
+        fns = {name: f for name, f in (("flash_attention", FlashAttention), ("wkv6", WKV6),
+                                       ("ssd_scan", SSDScan)) if per.get(name)}
+
+        def timed(name, bwd):
+            def run(ctx, *grads):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = bwd(ctx, *grads)
+                end.record()
+                spent[name].append((start, end))
+                return out
+            return staticmethod(run)
+
+        with ExitStack() as stack:
+            for name, f in fns.items():
+                stack.enter_context(swapped(f, "backward", timed(name, f.backward)))
+            _, r = step(step_fns[False], p, st)
+        share = {name: sum(s_.elapsed_time(e_) for s_, e_ in ev) for name, ev in spent.items()}
+        profiled = 3
+        report(f"profile {arch} train step {b}x{s}, each kernel's backward (the plain "
+               f"recompute) timed by CUDA events inside a {r['ms']:.1f} ms step: "
+               + ", ".join(f"{fns[name].__name__} {len(spent[name])} calls {ms:.1f} ms "
+                           f"({ms / r['ms']:.1%})" for name, ms in share.items()))
     launches = {name: mod.launches for name, mod in kernel_mods.items()}
-    plain_steps = 1 + TRAIN_STEPS + (TRAIN_STEPS - at) + profiled  # a, c, d, the profile
-    want = {name: (L * (plain_steps + 4) if name == "flash_attention" else 0)
+    plain_steps = 1 + TRAIN_STEPS + resumed + profiled  # a, c, d, the profile
+    # the forwards of check (b) that keep the other kernels: its step, and for
+    # a recurrence the float64 step, the two microbatches and three losses
+    checks = 1 + (6 if plain64_fn is not None else 0)
+    want = {name: per.get(name, 0) * (plain_steps + 4 + checks * (name != forced))
             for name in kernel_mods}
-    how = (f"flash_attention {L} x {plain_steps} steps + {2 * L} x 2 steps with remat; none "
-           f"in the plain-forward check")
+    how = "; ".join(f"{name} {n} x {plain_steps} steps + {2 * n} x 2 steps with remat"
+                    + (" + none in check (b)" if name == forced else
+                       f" + {n} x {checks} forwards of check (b)") for name, n in per.items())
     if launches != want:
-        raise AssertionError(f"training path launched {launches}, want {want} ({how})")
-    report(f"{TRAIN_ARCH} launches on the training path: {json.dumps(launches)} = {how}")
-    del params, state0
+        raise AssertionError(f"{arch} training path launched {launches}, want {want} ({how})")
+    report(f"{arch} launches on the training path: {json.dumps(launches)} = {how}")
+    del params, state0, p, st
     return launches
 
 
@@ -1593,7 +1799,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import mha_reference
     from repro_torch.kernels.gemm_int8 import kernel as gemm_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
     # ---------------------------------------------------------------- setup --
@@ -1641,11 +1849,12 @@ def main() -> int:
         by_path[label] = drive(kernel_mods, report, args.profile)
         launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
         torch.cuda.empty_cache()
-    label = f"{TRAIN_ARCH} train"
-    by_path[label] = drive_train(kernel_mods, report, args.profile)
-    launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch, depth in TRAIN_PATHS:
+        label = f"{arch} train"
+        by_path[label] = drive_train(arch, depth, kernel_mods, report, args.profile)
+        launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- timing --
     b, s = PREFILL_BATCH, PREFILL_LEN
@@ -1670,9 +1879,7 @@ def main() -> int:
               **{key: fa_shapes[0][key] for key in (
                   "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_cuda_ms",
                   "library_ms", "library", "timed")},
-              "launches_by_path": {label: counts["flash_attention"]
-                                   for label, counts in by_path.items()
-                                   if counts["flash_attention"]},
+              "launches_by_path": by_kernel(by_path, "flash_attention"),
               "shapes": fa_shapes}
 
     rcfg = get_config(RWKV_ARCH)
@@ -1685,6 +1892,11 @@ def main() -> int:
     wkv_shapes[0]["launches_at_this_shape"] = wkv_split["prefill_full_shape"]
     wkv_shapes[1]["launches"] = wkv_split["decode"]
     wkv_shapes[0]["max_abs_err"], wkv_shapes[1]["max_abs_err"] = wkv6_err, wkv6_decode_err
+    wkv_back = time_backward(
+        "wkv6", wkv6_ops.WKV6.apply,
+        wkv6_inputs(TRAIN_BATCH, TRAIN_LEN, H, P, seed=SEED + 7, model_decay=True),
+        "the autograd of wkv6_reference (the sequential recurrence), recomputed from the "
+        "saved inputs, cotangents on y and the final state", report)
     # the row's own numbers are the prefill shape's (as in earlier rows);
     # "shapes" holds both main-path shapes, each with its launches
     wkv_row = {"name": "wkv6", "route": "cuda",
@@ -1693,7 +1905,8 @@ def main() -> int:
                "launches": launches["wkv6"], "max_abs_err": wkv6_err,
                **{key: wkv_shapes[0][key] for key in (
                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed", "plan")},
-               "shapes": wkv_shapes}
+               "shapes": wkv_shapes, "launches_by_path": by_kernel(by_path, "wkv6"),
+               **wkv_back}
 
     H, P, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
     sargs = ssd_inputs(b, s, H, P, N, seed=SEED + 211)
@@ -1712,12 +1925,17 @@ def main() -> int:
            f"at fp32 CUDA-core peak {hw.FP32_FLOPS / 1e12:.0f} TFLOP/s; {n_bytes / 1e6:.1f} MB "
            f"at {hw.HBM_BYTES_PER_S / 1e12:.2f} TB/s); plan {json.dumps(ssd_plan)}, "
            f"{b * H * ssd_plan['blocks_per_head']} blocks")
+    ssd_back = time_backward(
+        "ssd_scan", ssd_ops.SSDScan.apply, ssd_inputs(TRAIN_BATCH, TRAIN_LEN, H, P, N,
+                                                      seed=SEED + 212),
+        "the autograd of ssd_chunked (chunk 128), recomputed from the saved inputs", report)
     ssd_row = {"name": "ssd_scan", "route": "cuda",
                "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                "replaces": "src/repro/kernels/ssd_scan/kernel.py:78",
                "launches": launches["ssd_scan"], "max_abs_err": ssd_err, "ms": ssd_ms,
                "plain_ms": ssd_plain_ms, "bound_ms": sbound_s * 1e3, "bound_by": sbound_by,
-               "library_ms": None, "timed": "events", "plan": ssd_plan}
+               "library_ms": None, "timed": "events", "plan": ssd_plan,
+               "launches_by_path": by_kernel(by_path, "ssd_scan"), **ssd_back}
     gemm_row = {"name": "gemm_int8", "route": "cuda",
                 "source": "src/repro_torch/kernels/gemm_int8/csrc/gemm_int8.cu",
                 "replaces": "src/repro/kernels/gemm_int8/kernel.py:62",

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from . import kernel
+from .._recompute import plain_gradients
 from .ref import banded_attention, chunked_attention, mha_reference
 
 # above this many kv positions the plain path takes the chunked online
@@ -54,13 +55,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
-            out = plain_attention(*inputs, **ctx.opts)
-            wrt = [x for x in inputs if x.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, grad_out))
-        return (*(next(grads) if n else None for n in need), None, None, None)
+        return (*plain_gradients(plain_attention, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                                 grad_out, **ctx.opts), None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,

@@ -68,11 +68,13 @@ def wkv6_chunked(r, k, v, w, u, state, chunk: int = 16):
 
 def wkv6_reference(r, k, v, w, u, state):
     """r/k/v/w: (b, s, h, p) fp32 (w in (0, 1)); u: (h, p); state: (b, h, p, p).
-    Returns (y: (b, s, h, p), final_state)."""
+    Returns (y: (b, s, h, p), final_state). The steps come from ``unbind``,
+    whose backward stacks the steps' gradients once; indexing step t instead
+    would make its backward fill and add a zero tensor of the whole input
+    each step (the card's wkv6 gradient differentiates this loop)."""
     S = state
     ys = []
-    for t in range(r.shape[1]):
-        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # (b, h, p)
+    for rt, kt, vt, wt in zip(*(x.unbind(1) for x in (r, k, v, w))):  # (b, h, p) each
         kv = kt[..., :, None] * vt[..., None, :]
         ys.append(torch.einsum("bhp,bhpq->bhq", rt, S + u[None, :, :, None] * kv))
         S = S * wt[..., None] + kv

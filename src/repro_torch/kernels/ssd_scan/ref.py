@@ -70,13 +70,15 @@ def ssd_chunked(xh, dt, A, B, C, chunk: int = 128):
     decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)  # (b, nc, l, H)
     states = torch.einsum("bcln,bclhp->bchnp", Bc, (decay_to_end * dtc)[..., None] * xc)
 
-    # inter-chunk recurrence: the state entering each chunk
+    # inter-chunk recurrence: the state entering each chunk, in fp32 as JAX
+    # carries it (float64 for float64 inputs, so that gradcheck runs)
+    acc = torch.promote_types(states.dtype, torch.float32)
     chunk_decay = torch.exp(cums[:, :, -1, :])  # (b, nc, H)
-    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=xh.device)
+    h = torch.zeros((b, H, N, P), dtype=acc, device=xh.device)
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + states[:, c].float()
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c].to(acc)
     h_in = torch.stack(h_prev, 1).to(Cc.dtype)  # (b, nc, H, N, P)
 
     # off-diagonal contribution: y_off = C_l . (exp(cums_l) h_in)

@@ -3,10 +3,12 @@ optimizer update; optional remat (``torch.utils.checkpoint`` per layer) and
 microbatch gradient accumulation. Sharding (JAX's ``policy``) is not ported
 yet.
 
-On the card the attention forward is the flash kernel and its backward the
-plain version's gradient (``kernels.flash_attention.ops.FlashAttention``);
-wkv6 and the SSD scan have no gradient on the card yet and raise there, so
-rwkv and mamba models train on the CPU.
+On the card each recurrence and attention layer runs its kernel forward and
+differentiates a plain version backward: attention through
+``kernels.flash_attention.ops.FlashAttention``, the rwkv wkv6 recurrence
+through ``kernels.rwkv6.ops.WKV6`` (the sequential ``wkv6_reference``) and
+the mamba SSD scan through ``kernels.ssd_scan.ops.SSDScan`` (``ssd_chunked``,
+the CPU path). So every block kind trains on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -58,7 +60,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
     metrics), metrics ``nll``, ``z_loss``, ``moe_aux``, ``lr`` and
     ``grad_norm``. ``microbatch > 1`` splits the batch into that many
     chunks along its first axis, sums their gradients in fp32 and divides
-    by the count (the metrics are the last chunk's), as JAX's scan does."""
+    by the count (the metrics are the last chunk's), as JAX's scan does. A
+    batch whose first axis does not divide by ``microbatch`` raises
+    ``ValueError`` before any work (JAX's reshape raises there too)."""
     dev = resolve_device(device)
 
     def grads_of(params: Any, batch: dict):
@@ -85,6 +89,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
         return _rebuild(params, (g / microbatch for g in gsum)), met
 
     def train_step(params: Any, opt_state: dict, batch: dict):
+        rows = {k: len(v) for k, v in batch.items()}
+        if microbatch > 1 and any(n % microbatch for n in rows.values()):
+            raise ValueError(f"microbatch={microbatch} does not divide the batch's first axis "
+                             f"{rows}: every row must fall in one chunk")
         grads, met = compute_grads(params, batch_on_device(batch, dev))
         params_new, opt_new, stats = adamw_update(opt_cfg, grads, opt_state, params)
         return params_new, opt_new, {**met, **stats}

@@ -1,7 +1,8 @@
 """The port's example twins (``python -m repro_torch.examples.<name>``) in a
 subprocess on the CPU at reduced size: ``serve_llm`` drains its requests;
 ``train_lm`` resumed from a checkpoint ends with the uninterrupted run's
-params."""
+params, and trains the recurrent configs (rwkv6-7b, zamba2-7b) too."""
+import math
 import os
 import re
 import shutil
@@ -50,3 +51,15 @@ def test_train_lm_resumes_to_the_same_params(tmp_path):
     assert names == sorted(p.name for p in got.iterdir()) and len(names) > 2
     for name in names:
         assert (want / name).read_bytes() == (got / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_train_lm_trains_recurrent_archs(tmp_path, arch):
+    """``--arch`` takes the rwkv and the hybrid mamba config: the reduced
+    model trains, with finite losses, and checkpoints."""
+    out = _run("train_lm", "--arch", arch, "--steps", "4", "--ckpt-every", "4",
+               "--seq-len", "16", "--batch", "2", "--ckpt-dir", str(tmp_path))
+    assert f"training {arch}" in out
+    losses = map(float, re.search(r"loss (\S+) -> (\S+)", out).groups())
+    assert all(math.isfinite(x) for x in losses)
+    assert (tmp_path / "ckpt_0000000004").is_dir()

@@ -2,9 +2,9 @@
 against their plain PyTorch versions, the pipeline executor on CUDA
 streams against the plain forward, the MoE FFN and the patch and frame
 frontends on the card against the same code on the CPU, and training on
-the card: the flash kernel's gradient (``ops.FlashAttention``) against the
-plain version's, the refusal of wkv6 and the SSD scan under grad, a train
-step against the same step on the CPU. This file imports no JAX (the
+the card: each kernel's gradient (``FlashAttention``, ``WKV6``, ``SSDScan``)
+against the plain version's, the kernels alone without grad, a train step
+against the same step on the CPU. This file imports no JAX (the
 machine with the card has none); every test here needs a CUDA device and
 skips without one:
 
@@ -686,32 +686,132 @@ def test_qwen3_layer_gives_wq_a_gradient(cuda):
         torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
+# (b, s, H, P): a TestWKV6 shape, and a fifth of the rwkv6-7b training shape's
+# heads at its length (b 4, s 1024, H 64, P 64 in chip_smoke.py)
+WKV6_GRAD_SHAPES = [(2, 24, 2, 16), (2, 1024, 16, 64)]
+
+
 @pytest.mark.gpu
-def test_wkv6_and_ssd_scan_refuse_grad(cuda):
-    """Neither recurrence has a gradient on the card yet: under grad they
-    raise, and without it (or under no_grad) they run."""
-    args = _wkv6_inputs(1, 8, 2, 16, seed=0)
+@pytest.mark.parametrize("b,s,H,P", WKV6_GRAD_SHAPES)
+def test_wkv6_gradient_is_plain_gradient(cuda, b, s, H, P):
+    """On tensors that need a gradient the dispatch takes ``WKV6``: one kernel
+    launch, its outputs with a ``grad_fn``, y and the final state within
+    the kernel check's 2e-4 of the plain recurrence (the model's decays and
+    a non-zero initial state), and, with cotangents on both outputs, the
+    gradients of all six inputs that autograd gives through
+    ``wkv6_reference`` (the backward recomputes them: the same ops on the
+    same inputs, 1e-5)."""
+    args = _wkv6_inputs(b, s, H, P, seed=s + P, state_scale=0.5, model_decay=True)
+    r = np.random.default_rng(s)
+    gy, gs = (torch.from_numpy(r.standard_normal(x.shape).astype(np.float32)).cuda()
+              for x in (args[0], args[5]))
+    live = [x.clone().requires_grad_() for x in args]
+    before = wkv6_kernel.launches
+    y, final = wkv6_ops.wkv6(*live)
+    assert wkv6_kernel.launches - before == 1
+    assert type(y.grad_fn).__name__ == "WKV6Backward" and final.grad_fn is y.grad_fn
+    got = torch.autograd.grad((y, final), live, (gy, gs))
+    assert wkv6_kernel.launches - before == 1  # the backward launches none
+    ref = [x.clone().requires_grad_() for x in args]
+    y_ref, final_ref = wkv6_reference(*ref)
+    want = torch.autograd.grad((y_ref, final_ref), ref, (gy, gs))
+    torch.testing.assert_close(y.detach(), y_ref.detach(), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(final.detach(), final_ref.detach(), rtol=2e-4, atol=2e-4)
+    for name, a, w in zip("r k v w u state".split(), got, want):
+        assert float(a.abs().max()) > 0, name
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.gpu
+def test_wkv6_without_grad_launches_the_kernel_alone(cuda):
+    """Under ``inference_mode`` and ``no_grad`` (every serving path) the
+    dispatch launches the kernel itself, with no ``WKV6`` node, and may
+    write ``state_out`` in place; under grad ``state_out`` raises."""
+    args = _wkv6_inputs(1, 8, 2, 16, seed=0, state_scale=0.5)
     args[0].requires_grad_()
-    with pytest.raises(RuntimeError, match="no gradient on CUDA"):
-        wkv6_ops.wkv6(*args)
+    for mode in (torch.inference_mode, torch.no_grad):
+        before = wkv6_kernel.launches
+        with mode():
+            y, _ = wkv6_ops.wkv6(*args)
+        assert wkv6_kernel.launches - before == 1 and y.grad_fn is None
+    out = torch.empty_like(args[5])
     with torch.no_grad():
-        wkv6_ops.wkv6(*args)
+        _, st = wkv6_ops.wkv6(*args, state_out=out)
+    assert st is out
+    before = wkv6_kernel.launches
+    with pytest.raises(ValueError, match="state_out"):
+        wkv6_ops.wkv6(*args, state_out=out)
+    assert wkv6_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,H,P,N", [(2, 40, 2, 16, 8), (2, 200, 2, 16, 8),
+                                       (1, 1024, 16, 64, 64)])
+def test_ssd_gradient_is_plain_gradient(cuda, b, s, H, P, N):
+    """On tensors that need a gradient the dispatch takes ``SSDScan``: one
+    kernel launch, y with a ``grad_fn`` and within the kernel check's 2e-4
+    of ``ssd_chunked``, and the gradients of xh, dt, A, B and C that
+    autograd gives through ``ssd_chunked`` (the backward recomputes them:
+    the same ops on the same inputs, 1e-5 relative to each gradient's
+    largest |value|); s 40 is one ragged chunk, s 200 two, s 1024 the
+    zamba2-7b training length at a seventh of its heads."""
+    args = _ssd_inputs(b, s, H, P, N, seed=s + N)
+    g = torch.from_numpy(np.random.default_rng(s).standard_normal(args[0].shape)
+                         .astype(np.float32)).cuda()
+    live = [x.clone().requires_grad_() for x in args]
+    before = ssd_kernel.launches
+    y = ssd_ops.ssd_scan(*live)
+    assert ssd_kernel.launches - before == 1 and type(y.grad_fn).__name__ == "SSDScanBackward"
+    got = torch.autograd.grad(y, live, g)
+    assert ssd_kernel.launches - before == 1
+    ref = [x.clone().requires_grad_() for x in args]
+    y_ref = ssd_chunked(*ref)
+    want = torch.autograd.grad(y_ref, ref, g)
+    torch.testing.assert_close(y.detach(), y_ref.detach(), rtol=2e-4, atol=2e-4)
+    for name, a, w in zip(("xh", "dt", "A", "B", "C"), got, want):
+        scale = float(w.abs().max())
+        assert float(a.abs().max()) > 0, name
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5 * scale, msg=name)
+
+
+@pytest.mark.gpu
+def test_ssd_without_grad_launches_the_kernel_alone(cuda):
+    """Under ``inference_mode`` and ``no_grad`` the dispatch launches the
+    kernel itself, with no ``SSDScan`` node."""
     xs = _ssd_inputs(1, 8, 2, 16, 8, seed=0)
     xs[1].requires_grad_()
-    with pytest.raises(RuntimeError, match="no gradient on CUDA"):
-        ssd_ops.ssd_scan(*xs)
-    with torch.no_grad():
-        ssd_ops.ssd_scan(*xs)
+    for mode in (torch.inference_mode, torch.no_grad):
+        before = ssd_kernel.launches
+        with mode():
+            y = ssd_ops.ssd_scan(*xs)
+        assert ssd_kernel.launches - before == 1 and y.grad_fn is None
+
+
+def _launches_a_forward(cfg) -> dict:
+    """Each kernel's launches in one forward of ``cfg``: flash attention a
+    dense or shared-attention layer, wkv6 an rwkv layer, the SSD scan a
+    mamba layer."""
+    kinds = {"rwkv": "wkv6", "mamba": "ssd_scan"}
+    out = {"flash_attention": 0, "wkv6": 0, "ssd_scan": 0}
+    for blk in tf.layer_plan(cfg):
+        out[kinds.get(blk.kind, "flash_attention")] += blk.n
+    return out
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,S,remat", [("qwen3-0.6b", 64, True), ("gemma3-4b", 160, False),
-                                          ("dbrx-132b", 64, False)])
-def test_train_step_on_cuda_matches_cpu(cuda, arch, S, remat):
-    """One reduced AdamW step on the card (the flash kernel forward, the plain
-    gradient; gemma3 at s 160 beyond its window 64) against the same step on
-    the CPU: metrics at 1e-5 relative, moments at 1e-4 of each leaf's
-    largest; flash launches once a layer (twice with remat)."""
+                                          ("dbrx-132b", 64, False), ("rwkv6-7b", 64, False),
+                                          ("rwkv6-7b", 64, True), ("zamba2-7b", 64, False),
+                                          ("zamba2-7b", 200, True)])
+def test_train_step_on_cuda_matches_cpu(cuda, monkeypatch, arch, S, remat):
+    """One reduced AdamW step on the card (each kernel forward, the plain
+    gradient; gemma3 at s 160 beyond its window 64, zamba2 at s 200 over two
+    SSD chunks) against the same step on the CPU: metrics at 1e-5 relative,
+    moments at 1e-4 of each leaf's largest; each kernel launches once a
+    layer of its kind (twice with remat). The CPU's rwkv forward is the
+    chunked form, which the reduced init takes outside its regime (a
+    channel's 16-step log decay passes -CLAMP), so for rwkv6 the CPU step
+    runs the sequential ``wkv6_reference`` the kernel runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch).reduced()
     c = opt.AdamWConfig(lr=1e-3, warmup_steps=0)
@@ -719,14 +819,21 @@ def test_train_step_on_cuda_matches_cpu(cuda, arch, S, remat):
     r = np.random.default_rng(4)
     toks = r.integers(0, cfg.vocab_size, (2, S + 1))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mods = {"flash_attention": kernel, "wkv6": wkv6_kernel, "ssd_scan": ssd_kernel}
     out = {}
     for dev in ("cpu", "cuda"):
-        p = _on(params, dev)
-        before = kernel.launches
-        step = train.make_train_step(cfg, c, remat=remat, device=dev)
-        _, st, m = step(p, opt.adamw_init(c, p), batch)
-        out[dev] = (st, {k: float(v) for k, v in m.items()}, kernel.launches - before)
-    assert out["cpu"][2] == 0 and out["cuda"][2] == cfg.num_layers * (2 if remat else 1)
+        with monkeypatch.context() as mp:
+            if dev == "cpu" and cfg.family == "ssm":
+                mp.setattr(wkv6_ops, "wkv6", lambda *a, state_out=None: wkv6_reference(*a))
+            p = _on(params, dev)
+            before = {name: mod.launches for name, mod in mods.items()}
+            step = train.make_train_step(cfg, c, remat=remat, device=dev)
+            _, st, m = step(p, opt.adamw_init(c, p), batch)
+        out[dev] = (st, {k: float(v) for k, v in m.items()},
+                    {name: mod.launches - before[name] for name, mod in mods.items()})
+    per = _launches_a_forward(cfg)
+    assert out["cpu"][2] == {name: 0 for name in mods}
+    assert out["cuda"][2] == {name: n * (2 if remat else 1) for name, n in per.items()}
     for k, w in out["cpu"][1].items():
         assert out["cuda"][1][k] == pytest.approx(w, rel=1e-5, abs=1e-7), k
     for name in ("m", "v"):

@@ -282,3 +282,105 @@ def test_bound_at_prefill_shape():
     assert abs(t - 1.0268e-4) < 1e-8
     t_ops, _ = hw.bound_seconds(0, flops, hw.FP32_FLOPS)
     assert abs(t_ops - 8.013e-5) < 1e-8
+
+
+# ------------------------------------------------------------- gradients --
+def _model_decay_inputs(b=2, s=24, H=2, P=16, seed=21):
+    """A non-zero initial state and the model's decays: w = exp(-exp(w0 +
+    0.1 N)) per token, w0 ~ 0.5 N per channel, one channel a head at w0 =
+    2.25 (w ~ 7.6e-5, as the full-width init reaches), where a 16-step log
+    decay passes -CLAMP."""
+    rr, kk, vv, _, uu, st = _inputs(b=b, s=s, H=H, P=P, seed=seed, state_scale=0.5)
+    g = np.random.default_rng(seed + 1)
+    w0 = 0.5 * g.standard_normal((H, P))
+    w0[:, 0] = 2.25
+    ww = np.exp(-np.exp(w0 + 0.1 * g.standard_normal((b, s, H, P)))).astype(np.float32)
+    return rr, kk, vv, ww, uu, st
+
+
+def _fake_kernel(calls):
+    """The kernel's stand-in on the CPU: the sequential recurrence it runs,
+    computed outside autograd as the kernel is, each call counted."""
+    def fake(r, k, v, w, u, state, state_out=None):
+        calls.append(r.shape)
+        with torch.no_grad():
+            return wkv6_reference(r, k, v, w, u, state)
+    return fake
+
+
+def test_wkv6_function_gradients_match_jax_vjp(monkeypatch):
+    """``WKV6``'s backward (the kernel replaced by the plain recurrence) gives
+    all six inputs the gradients of ``jax.vjp`` of the JAX oracle
+    ``wkv6_reference``, with cotangents on y and on the final state, at b 2,
+    s 24, H 2, P 16 with one channel a head at w ~ 7.6e-5: fp32 sums of 24
+    steps in another order (~2e-7 seen), held to 1e-5 of each gradient's
+    largest |value|."""
+    import jax
+
+    monkeypatch.setattr(kernel, "wkv6_cuda", _fake_kernel([]))
+    arrs = _model_decay_inputs()
+    assert np.exp(np.log(arrs[3][:, :16, :, 0]).sum(1)).max() < np.exp(-CLAMP)
+    g = np.random.default_rng(22)
+    gy = g.standard_normal(arrs[0].shape).astype(np.float32)
+    gs = g.standard_normal(arrs[5].shape).astype(np.float32)
+    _, vjp = jax.vjp(jax_reference, *_jax(arrs))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gs)))
+    args = [x.requires_grad_() for x in _torch(arrs)]
+    y, final = ops.WKV6.apply(*args)
+    got = torch.autograd.grad((y, final), args, (torch.from_numpy(gy), torch.from_numpy(gs)))
+    for name, a, b in zip("r k v w u state".split(), got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=name)
+
+
+def test_wkv6_reference_gradcheck():
+    """The version the backward differentiates passes a float64 gradcheck in
+    every input, the w ~ 7.6e-5 channel included."""
+    arrs = _model_decay_inputs(b=1, s=6, H=2, P=4, seed=23)
+    args = tuple(torch.from_numpy(a).double().requires_grad_() for a in arrs)
+    assert torch.autograd.gradcheck(wkv6_reference, args)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_wkv6_function_plumbing(monkeypatch, remat):
+    """With the kernel replaced by the plain recurrence, ``WKV6`` gives the
+    gradients autograd gives through ``wkv6_reference`` itself, bit for bit,
+    to only the inputs that need one; under remat (``torch.utils.checkpoint``,
+    as the models' forward takes it) the forward runs twice and the backward
+    calls no kernel."""
+    calls = []
+    monkeypatch.setattr(kernel, "wkv6_cuda", _fake_kernel(calls))
+    arrs = _torch(_model_decay_inputs(seed=24))
+    need = [True, True, False, True, True, True]
+    g = torch.from_numpy(np.random.default_rng(25).standard_normal(arrs[0].shape)
+                         .astype(np.float32))
+
+    def loss(fn, args):
+        y, final = fn(*args)
+        return (y * g).sum() + final.square().sum()
+
+    args = [x.clone().requires_grad_(n) for x, n in zip(arrs, need)]
+    if remat:
+        out = torch.utils.checkpoint.checkpoint(loss, ops.WKV6.apply, args, use_reentrant=False)
+    else:
+        out = loss(ops.WKV6.apply, args)
+    assert len(calls) == 1
+    out.backward()
+    assert len(calls) == (2 if remat else 1)
+    ref = [x.clone().requires_grad_(n) for x, n in zip(arrs, need)]
+    loss(wkv6_reference, ref).backward()
+    for a, b, n in zip(args, ref, need):
+        assert (a.grad is None) == (not n)
+        if n:
+            assert torch.equal(a.grad, b.grad)
+
+
+def test_cpu_dispatch_under_grad_takes_the_plain_version():
+    """On the CPU a gradient flows through the JAX package's CPU dispatch
+    (the chunked form), not through ``WKV6``."""
+    args = [x.requires_grad_() for x in _torch(_inputs(s=8, seed=26, state_scale=0.5))]
+    y, _ = ops.wkv6(*args)
+    assert "WKV6" not in type(y.grad_fn).__name__
+    y_ch, _ = wkv6_chunked(*args)
+    assert torch.equal(y, y_ch)

@@ -246,3 +246,109 @@ def test_bound_at_prefill_shape():
     assert abs(t - 1.1218e-4) < 1e-8
     t_bytes, _ = hw.bound_seconds(n_bytes, 0, hw.FP32_FLOPS)
     assert abs(t_bytes - 7.348e-5) < 1e-8
+
+
+# ------------------------------------------------------------- gradients --
+def _grad_inputs(s, seed, b=2, H=2, P=16, N=8):
+    """``_inputs`` with A as its log, ``A_log`` (A = -exp(A_log), as the
+    mamba block computes it)."""
+    xh, dt, A, B, C = _inputs(b=b, s=s, H=H, P=P, N=N, seed=seed)
+    return xh, dt, np.log(-A), B, C
+
+
+def _with_log_a(fn, exp):
+    """``fn`` taking ``A_log`` in place of A, so that a gradient reaches it as
+    it reaches the mamba block's parameter."""
+    return lambda xh, dt, A_log, B, C: fn(xh, dt, -exp(A_log), B, C)
+
+
+def _fake_kernel(calls):
+    """The kernel's stand-in on the CPU: the sequential recurrence it runs,
+    (y, final state) computed outside autograd as the kernel's are, each
+    call counted."""
+    def fake(xh, dt, A, B, C):
+        calls.append(xh.shape)
+        with torch.no_grad():
+            return ssd_reference(xh, dt, A, B, C)
+    return fake
+
+
+@pytest.mark.parametrize("s", [40, 200])
+def test_ssd_function_gradients_match_jax_vjp(monkeypatch, s):
+    """``SSDScan``'s backward (the kernel replaced by the plain recurrence)
+    gives xh, dt, A_log (through A = -exp(A_log)), B and C the gradients of
+    ``jax.vjp`` of the JAX model's ``ssd_chunked`` (chunk 128): s 40 is one
+    ragged chunk, s 200 two chunks with the state carried between them. fp32
+    sums in another order (up to ~7e-6 seen, in A_log's sum over every
+    position), held to 1e-4 of each gradient's largest |value|."""
+    import jax
+
+    monkeypatch.setattr(kernel, "ssd_scan_cuda", _fake_kernel([]))
+    arrs = _grad_inputs(s, seed=s + 3)
+    gy = np.random.default_rng(s + 4).standard_normal(arrs[0].shape).astype(np.float32)
+    _, vjp = jax.vjp(_with_log_a(jax_chunked, jnp.exp), *_jax(arrs))
+    want = vjp(jnp.asarray(gy))
+    args = [x.requires_grad_() for x in _torch(arrs)]
+    y = _with_log_a(ops.SSDScan.apply, torch.exp)(*args)
+    got = torch.autograd.grad(y, args, torch.from_numpy(gy))
+    for name, a, b in zip(("xh", "dt", "A_log", "B", "C"), got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-4 * np.abs(b).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("s,chunk", [(20, 128), (20, 8)])
+def test_ssd_chunked_gradcheck(s, chunk):
+    """The version the backward differentiates passes a float64 gradcheck in
+    every input: in one chunk, and across three chunks (s 20 at chunk 8), the
+    carried state included."""
+    arrs = _grad_inputs(s, seed=30, b=1, P=4, N=3)
+    args = tuple(torch.from_numpy(a).double().requires_grad_() for a in arrs)
+    assert torch.autograd.gradcheck(
+        _with_log_a(lambda *t: ssd_chunked(*t, chunk=chunk), torch.exp), args)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_ssd_function_plumbing(monkeypatch, remat):
+    """With the kernel replaced by the plain recurrence, ``SSDScan`` gives the
+    gradients autograd gives through ``ssd_chunked`` itself, bit for bit, to
+    only the inputs that need one; under remat (``torch.utils.checkpoint``,
+    as the models' forward takes it) the forward runs twice and the backward
+    calls no kernel."""
+    calls = []
+    monkeypatch.setattr(kernel, "ssd_scan_cuda", _fake_kernel(calls))
+    arrs = _torch(_inputs(s=150, seed=31))
+    need = [True, True, True, False, True]
+    g = torch.from_numpy(np.random.default_rng(32).standard_normal(arrs[0].shape)
+                         .astype(np.float32))
+
+    def loss(fn, args):
+        return (fn(*args) * g).sum()
+
+    args = [x.clone().requires_grad_(n) for x, n in zip(arrs, need)]
+    if remat:
+        out = torch.utils.checkpoint.checkpoint(loss, ops.SSDScan.apply, args,
+                                                use_reentrant=False)
+    else:
+        out = loss(ops.SSDScan.apply, args)
+    assert len(calls) == 1
+    out.backward()
+    assert len(calls) == (2 if remat else 1)
+    ref = [x.clone().requires_grad_(n) for x, n in zip(arrs, need)]
+    loss(ssd_chunked, ref).backward()
+    for a, b, n in zip(args, ref, need):
+        assert (a.grad is None) == (not n)
+        if n:
+            assert torch.equal(a.grad, b.grad)
+
+
+def test_ssd_chunked_keeps_fp32_for_fp32_inputs():
+    """The carried state follows float64 inputs (for gradcheck) but stays
+    fp32 for fp32 inputs, as JAX carries it: the fp32 result is unchanged."""
+    t = _torch(_inputs(s=300, seed=33))
+    y = ssd_chunked(*t)
+    assert y.dtype == torch.float32
+    _close(y, jax_chunked(*_jax([a.numpy() for a in t])), TOL)
+    y64 = ssd_chunked(*(a.double() for a in t))
+    assert y64.dtype == torch.float64
+    torch.testing.assert_close(y64.float(), y, rtol=2e-4, atol=2e-4)

@@ -103,6 +103,25 @@ def test_microbatch_matches_jax(arch, S):
     _check_step(_port_step(arch, S, True, 2), _jax_step(arch, S, 2))
 
 
+def test_microbatch_that_does_not_divide_raises():
+    """A batch of 3 at ``microbatch=2``: JAX's reshape raises, and the port
+    raises ``ValueError`` before any work rather than drop the third row."""
+    cfg = get_config("qwen3-0.6b").reduced()
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    c = opt.AdamWConfig(lr=LR, warmup_steps=0)
+    batch = _batch(cfg, 16, seed=5)
+    batch = {k: v[:3] for k, v in batch.items()}
+    step = train.make_train_step(cfg, c, microbatch=2, device="cpu")
+    with pytest.raises(ValueError, match="microbatch=2 does not divide"):
+        step(params, opt.adamw_init(c, params), batch)
+    jcfg = jget("qwen3-0.6b").reduced()
+    jparams = jax.tree.map(jnp.asarray, numpy_params(jcfg, seed=0))
+    jc = jopt.AdamWConfig(lr=LR, warmup_steps=0)
+    jstep = jtrain.make_train_step(jcfg, None, jc, remat=False, microbatch=2)
+    with pytest.raises(TypeError):
+        jstep(jparams, jopt.adamw_init(jc, jparams), jax.tree.map(jnp.asarray, batch))
+
+
 def test_remat_is_the_same_step():
     """remat reruns each layer's forward in the backward: the same step, bit
     for bit, on the CPU."""
