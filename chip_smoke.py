@@ -50,6 +50,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tokens as CUDA events, 4 microbatches of 1 x 4608 tokens (beyond the
    window), against the plain forward on the same tokens at 2e-3, its token
    operations equal to what the programs prescribe;
+   then the executor across processes on the same model, tokens and card:
+   4 ranks over gloo (one stage a rank, the REQ/ACK tokens as messages over
+   pinned B0/B1 buffers), params shared by CUDA IPC, against the plain
+   forward at 2e-3 and the one-card executor (bit-equal expected), its
+   token operations equal to the programs' and to the simulator copy's,
+   the wall of a call, each stage's Compute and each message's D2H,
+   send-recv and H2D;
 6. training, fp32, AdamW, 4 x 1024 tokens of the token stream a step:
    qwen3-0.6b at full width and depth, rwkv6-7b (6 of 32 layers) and
    zamba2-7b (12 of 81 layers, two shared-attention occurrences) at full
@@ -207,6 +214,12 @@ GEMM_TIMED = ("layer3.0.conv2", 16)
 PIPE_ARCH = "h2o-danube-3-4b"
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN = 4, 4, 1, 4608
 PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
+# the executor across processes: PIPE_STAGES ranks on this card over gloo,
+# calls of it (the first also starts each rank's cuBLAS and pins its
+# buffers), the bound of the whole spawn, and how far its logits may be from
+# the one-card executor's: the same kernels on the same inputs, so bit-equal
+# is expected; the fp32 copies across processes are exact
+PIPE_RANK_CALLS, PIPE_RANK_TIMEOUT_S, PIPE_RANK_ONE_CARD_TOL = 2, 420.0, 1e-5
 # the training path: qwen3-0.6b at full width and depth, fp32, AdamW (no
 # warmup, so that 5 steps on one repeated batch move the loss), the token
 # stream at its vocabulary, 4 x 1024 tokens a step; a checkpoint after step
@@ -1442,6 +1455,196 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
     return launches
 
 
+def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> dict:
+    """The rank body of ``drive_pipeline_ranks``, run by ``spawn_stages`` in a
+    process of its own: ``calls`` calls of this rank's ``RankPipelineForward``
+    on its params slice (shared by CUDA IPC), each started after a barrier.
+    The last rank holds its logits to the plain forward's (``want``) and the
+    one-card executor's (``one``) in place, both shared by CUDA IPC. Returns
+    what the rank measured and counted: the wall of each call (host clock,
+    the barrier to its return), token operations, flash launches, Compute
+    times, messages, and the card's memory in use."""
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.runtime import pipeline_ranks as pr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = pr.RankPipelineForward(cfg, plan, rank, device)
+    tokens = tokens.to(device)
+    fa_kernel.launches = 0
+    out = {"wall_ms": [], "counts": [], "stage_ms": [], "messages": []}
+    for _ in range(calls):
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits = fn(local, tokens)  # ends in a synchronize
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["counts"].append(fn.counts)
+        out["stage_ms"].append(fn.stage_ms)
+        out["messages"].append(fn.messages)
+    out["launches"] = fa_kernel.launches
+    free, total = torch.cuda.mem_get_info(device)
+    out["card_used_gb"] = (total - free) / 1e9
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["reserved_gb"] = torch.cuda.memory_reserved(device) / 1e9
+    if logits is not None:
+        out["finite"] = bool(torch.isfinite(logits).all())
+        out["max_diff"] = (logits - want).abs().max().item()
+        out["allclose"] = bool(torch.allclose(logits, want, rtol=PIPE_TOL, atol=PIPE_TOL))
+        out["one_card_equal"] = bool(torch.equal(logits, one))
+        out["one_card_diff"] = (logits - one).abs().max().item()
+    return out
+
+
+def drive_pipeline_ranks(kernel_mods, report) -> dict:
+    """The executor across processes at full width: PIPE_ARCH with random fp32
+    weights from SEED, PIPE_STAGES ranks on this one card over gloo (the host
+    transport: NCCL takes one card a rank), PIPE_MICROBATCHES microbatches of
+    PIPE_MB x PIPE_LEN tokens, PIPE_RANK_CALLS calls. This process builds the
+    params once and hands each rank its ``stage_slice`` by CUDA IPC, computes
+    the plain forward's logits and the one-card executor's (timed as the same
+    call) and shares them with the last rank, which compares in place. The
+    flash kernel was built at setup, so the ranks only load it. Every count
+    is set to 0 before the first call here and in each rank; flash must have
+    launched lps x M times a call in each rank, L x M in all, and here L for
+    the forward and L x M a one-card call. Returns the counts, the ranks'
+    included."""
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import pipeline as pp
+    from repro_torch.runtime import pipeline_ranks as pr
+
+    cfg = get_config(PIPE_ARCH)
+    S, M, mb, s = PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN
+    L, V, calls = cfg.num_layers, cfg.vocab_size, PIPE_RANK_CALLS
+    if not _build._target(fa_kernel.SOURCE).exists():
+        raise AssertionError("the flash kernel is not built: the ranks would each run nvcc")
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, seed=SEED, dtype=torch.float32)
+    param_gb = sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9
+    plan = pp.plan_pipeline(cfg, n_stages=S, microbatches=M, seq_len=s, microbatch_size=mb)
+    sparams = pp.stack_stage_params(cfg, params, plan)
+    lps = plan.layers_per_stage
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, V, (M, mb, s)),
+                             device="cuda")
+    logits_gb = M * mb * s * V * 4 / 1e9
+    act_mb = mb * s * cfg.d_model * 4 / 1e6
+    print(f"{PIPE_ARCH} ranks: reckoned card memory {param_gb:.2f} GB of params (this "
+          f"process, shared by CUDA IPC) + 2 x {logits_gb:.2f} GB of logits here (plain, "
+          f"one-card) + {logits_gb:.2f} GB on the last rank + a {act_mb:.1f} MB stage input "
+          f"a rank (SB/RB are pinned host buffers, 4 x {act_mb:.1f} MB a rank) + "
+          f"{S + 1} CUDA contexts + each rank's layer activations")
+
+    def timed(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    want = tf.forward(cfg, params, {"tokens": tokens.reshape(M * mb, s)})[0]
+    one_fn = pp.make_pipeline_forward(cfg, plan)
+    one, one_ms = timed(lambda: one_fn(sparams, tokens))
+    del one
+    one, one_ms2 = timed(lambda: one_fn(sparams, tokens))
+    one_stage_ms = [sum(ms) / len(ms) for ms in one_fn.stage_ms]
+    pus = [core.PUSpec(pid=i, kind="PU2x", sa_rows=64, sa_cols=8, slr=i // 2) for i in range(S)]
+    sim = core.MultiPUSimulator(pus).run(plan.programs, first_pid=0, last_pid=S - 1)
+    if sim.deadlocked or sim.rounds != M:
+        raise AssertionError(f"the simulator copy: deadlocked {sim.deadlocked}, {sim.rounds} "
+                             f"rounds of {M}")
+    slices = pr.PerRank([pr.stage_slice(cfg, sparams, plan, r) for r in range(S)])
+    t0 = time.perf_counter()
+    ranks = pr.spawn_stages(S, pipeline_rank, cfg, plan, slices, tokens.cpu(),
+                            pr.PerRank([None] * (S - 1) + [want.view(M, mb, s, V)]),
+                            pr.PerRank([None] * (S - 1) + [one]), calls,
+                            backend="gloo", timeout_s=PIPE_RANK_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    parent_launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    del want, one, slices, sparams, params, one_fn
+    gc.collect()
+
+    last = ranks[-1]
+    if not (last["finite"] and last["allclose"]):
+        raise AssertionError(f"ranks vs the plain forward: finite {last['finite']}, max |diff| "
+                             f"{last['max_diff']:.3e} beyond rtol=atol={PIPE_TOL}")
+    if not (last["one_card_equal"] or last["one_card_diff"] <= PIPE_RANK_ONE_CARD_TOL):
+        raise AssertionError(f"ranks vs the one-card executor: max |diff| "
+                             f"{last['one_card_diff']:.3e} > {PIPE_RANK_ONE_CARD_TOL}")
+    want_counts = pp.program_sync_counts(plan)
+    sends = sum(c["SEND_REQ"] + c["SEND_ACK"] for c in want_counts)
+    for i, r in enumerate(ranks):
+        if r["counts"] != [want_counts[i]] * calls:
+            raise AssertionError(f"rank {i} performed {r['counts']}, the programs prescribe "
+                                 f"{want_counts[i]} a call")
+        if r["launches"] != lps * M * calls:
+            raise AssertionError(f"rank {i} launched flash {r['launches']} times, want "
+                                 f"{lps} x {M} x {calls}")
+    if sends != sim.tokens_sent:
+        raise AssertionError(f"the ranks send {sends} messages a call, the simulator copy "
+                             f"{sim.tokens_sent} tokens")
+    rank_launches = sum(r["launches"] for r in ranks)
+    if rank_launches != L * M * calls:
+        raise AssertionError(f"the ranks launched flash {rank_launches} times, want "
+                             f"{L} x {M} x {calls}")
+    want_parent = {name: (L * (1 + 2 * M) if name == "flash_attention" else 0)
+                   for name in kernel_mods}
+    if parent_launches != want_parent:
+        raise AssertionError(f"this process launched {parent_launches}, want {want_parent} "
+                             f"(flash {L} x (1 forward + 2 one-card calls x {M}))")
+
+    report(f"{PIPE_ARCH} ranks: {S} processes on one card over gloo, {M} microbatches of "
+           f"{mb}x{s}: logits vs the plain forward max |diff| {last['max_diff']:.3e} (rtol=atol="
+           f"{PIPE_TOL}); vs the one-card executor bit-equal {last['one_card_equal']}, max "
+           f"|diff| {last['one_card_diff']:.3e}")
+    report(f"{PIPE_ARCH} ranks: tokens a call by rank {json.dumps(want_counts)} = the "
+           f"programs', {sends} messages = the simulator copy's tokens_sent {sim.tokens_sent}; "
+           f"flash launches by rank {[r['launches'] for r in ranks]} = {lps} x {M} x {calls} "
+           f"calls each")
+    report(f"{PIPE_ARCH} ranks wall (host clock, a barrier to the last rank's return): "
+           + " / ".join(f"{ms:.1f}" for ms in last["wall_ms"]) + " ms; the one-card executor "
+           f"(host clock, synchronized) {one_ms:.1f} / {one_ms2:.1f} ms; spawn_stages "
+           f"{spawn_s:.1f} s in all")
+    for c in range(calls):
+        report(f"{PIPE_ARCH} ranks call {c + 1} Compute ms by stage and microbatch (CUDA "
+               "events): " + "; ".join(
+                   f"stage {i} " + " ".join(f"{ms:.1f}" for ms in r["stage_ms"][c])
+                   for i, r in enumerate(ranks))
+               + "; one-card executor, mean by stage: "
+               + " ".join(f"{ms:.1f}" for ms in one_stage_ms))
+        per = []
+        for i in range(S - 1):
+            d2h = {rd: ms for what, rd, ms in ranks[i]["messages"][c] if what == "d2h"}
+            got = ranks[i + 1]["messages"][c]
+            sr = {rd: ms for what, rd, ms in got if what == "send_recv"}
+            h2d = {rd: ms for what, rd, ms in got if what == "h2d"}
+            per += [f"{i}->{i + 1} r{rd} {d2h[rd]:.2f}/{sr[rd]:.2f}/{h2d[rd]:.2f}"
+                    for rd in range(M)]
+        report(f"{PIPE_ARCH} ranks call {c + 1} messages of {act_mb:.1f} MB, D2H / send-recv / "
+               "H2D ms (the copies by CUDA events, send-recv by the host clock): "
+               + ", ".join(per))
+    report(f"{PIPE_ARCH} ranks memory: this process peak {peak_gb:.2f} GB allocated, "
+           f"{reserved_gb:.2f} GB reserved; the ranks' peaks allocated "
+           + " ".join(f"{r['peak_gb']:.2f}" for r in ranks) + " GB, reserved "
+           + " ".join(f"{r['reserved_gb']:.2f}" for r in ranks)
+           + f" GB; the card in use (all processes) {max(r['card_used_gb'] for r in ranks):.2f}"
+           " GB at the ranks' end")
+
+    launches = {name: parent_launches[name] + (rank_launches if name == "flash_attention"
+                                               else 0) for name in kernel_mods}
+    how = (f"flash_attention {L} x (1 forward + 2 one-card calls x {M}) here + {S} ranks x "
+           f"{lps} x {M} x {calls} calls")
+    report(f"{PIPE_ARCH} launches on the rank pipeline path: {json.dumps(launches)} = {how}")
+    return launches
+
+
 def launches_a_forward(cfg) -> dict:
     """Each kernel's launches in one forward of ``cfg``: flash attention a
     dense, MoE or shared-attention layer, wkv6 an rwkv layer, the SSD scan a
@@ -1849,6 +2052,10 @@ def main() -> int:
         by_path[label] = drive(kernel_mods, report, args.profile)
         launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
         torch.cuda.empty_cache()
+    label = f"{PIPE_ARCH} pipeline ranks"
+    by_path[label] = drive_pipeline_ranks(kernel_mods, report)
+    launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
+    torch.cuda.empty_cache()
     for arch, depth in TRAIN_PATHS:
         label = f"{arch} train"
         by_path[label] = drive_train(arch, depth, kernel_mods, report, args.profile)

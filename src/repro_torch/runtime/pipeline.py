@@ -24,8 +24,9 @@ the host runs the programs tick by tick (stage ``i`` runs microbatch
 SEND would let a CUDA stream wait on nothing.
 
 Unlike the JAX shard_map executor, which runs one program on every device of
-a mesh, this one runs every stage on one card; a multi-process executor
-(one stage a rank) is not written yet (ROADMAP queue 1 item 6).
+a mesh, this one runs every stage on one card. ``pipeline_ranks`` runs one
+stage a rank, its tokens as messages between processes; both executors walk
+the programs with ``walk_stage``.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ from ..models import transformer as tf
 from ..models.layers import embed
 
 SYNC_OPS = ("WAIT_REQ", "SEND_ACK", "WAIT_ACK", "SEND_REQ")
-_ROADMAP_ITEM = "ROADMAP queue 1 item 6 (pipeline executor: uniform dense stacks only)"
+_ROADMAP_ITEM = "a deliberate difference, ROADMAP queue 3: uniform dense stacks only"
 
 
 # ---------------------------------------------------------- analytic costs --
@@ -83,6 +84,16 @@ class PipelinePlan:
     boundaries: list[int]  # balanced contiguous layer ranges
     stage_time_s: float  # analytic steady-state stage time (H100 rates)
     programs: list[PUProgram] = field(default_factory=list)
+
+    @property
+    def predicted_throughput(self) -> float:
+        """Microbatches a second in the steady state."""
+        return 1.0 / self.stage_time_s if self.stage_time_s else 0.0
+
+    @property
+    def predicted_latency(self) -> float:
+        """Seconds from the first microbatch in to the last one out."""
+        return (self.n_stages + self.microbatches - 1) * self.stage_time_s
 
 
 def plan_pipeline(cfg: ArchConfig, *, n_stages: int, microbatches: int,
@@ -213,6 +224,52 @@ def stack_stage_params(cfg: ArchConfig, params: dict, plan: PipelinePlan) -> dic
     return out
 
 
+def walk_stage(pu: PUProgram, prologue: bool, counts: dict[str, int], *, sync, move,
+               compute) -> None:
+    """One pass over a stage's LD, CP and ST programs, in that order: the
+    instructions before ``ICU_BA`` (the prologue, run once) or those from
+    ``ICU_BA`` on (one round). Each Sync is a token operation, ``sync(inst)``,
+    counted by name in ``counts``; each DataMove, with the AddrCyc after it,
+    hands the round's activation in or on, ``move(group, bid)``, the buffer
+    picked by the DataMove's cycled address; the Compute instruction runs the
+    stage's layers, ``compute()``. The programs' dynamic state (BIDs and
+    addresses) steps as the ICU's does, so ``pu`` is a clone the caller owns."""
+    for prog in (pu.ld, pu.cp, pu.st):
+        insts = prog.instructions
+        icu_ba = prog.progctrl.icu_ba
+        k, end = (0, icu_ba) if prologue else (icu_ba, len(insts))
+        while k < end:
+            inst = insts[k]
+            if isinstance(inst, Sync):
+                sync(inst)
+                counts[inst.op.name] += 1
+                inst.step()
+            elif isinstance(inst, DataMove):
+                cyc = insts[k + 1] if k + 1 < end else None
+                if not isinstance(cyc, AddrCyc):
+                    raise ValueError(f"{prog.name}[{k}]: a DataMove without the "
+                                     "AddrCyc that picks its buffer")
+                move(prog.group, (inst.cur_ba - cyc.ba) // cyc.aoffs)
+                inst.cur_ba = cyc.step(inst.cur_ba)
+                k += 1
+            elif isinstance(inst, Compute):
+                compute()
+            k += 1
+
+
+def check_programs(plan: PipelinePlan) -> None:
+    """A program for each stage, each valid, each running one round a
+    microbatch."""
+    if len(plan.programs) != plan.n_stages:
+        raise ValueError(f"{len(plan.programs)} programs for {plan.n_stages} stages")
+    for pu in plan.programs:
+        pu.validate()
+        for prog in (pu.ld, pu.cp, pu.st):
+            if prog.progctrl.nr != plan.microbatches:
+                raise ValueError(f"{prog.name} runs {prog.progctrl.nr} rounds, not "
+                                 f"{plan.microbatches} microbatches")
+
+
 class _Token:
     """One REQ or ACK token of a (sender, receiver, BID): the number of sends
     not yet waited for and, on the card, the event of the latest send."""
@@ -249,14 +306,7 @@ class PipelineForward:
 
     def __init__(self, cfg: ArchConfig, plan: PipelinePlan, device=None):
         _check_uniform_dense(cfg)
-        if len(plan.programs) != plan.n_stages:
-            raise ValueError(f"{len(plan.programs)} programs for {plan.n_stages} stages")
-        for pu in plan.programs:
-            pu.validate()
-            for prog in (pu.ld, pu.cp, pu.st):
-                if prog.progctrl.nr != plan.microbatches:
-                    raise ValueError(f"{prog.name} runs {prog.progctrl.nr} rounds, not "
-                                     f"{plan.microbatches} microbatches")
+        check_programs(plan)
         self.cfg, self.plan, self.device = cfg, plan, resolve_device(device)
         self.counts: list[dict[str, int]] = []
         self.stage_ms: list[list[float]] = []
@@ -303,7 +353,15 @@ class PipelineForward:
                                         torch.cuda.Event() if cuda else None)
             return tokens_of[key]
 
-        def move(group: Group, i: int, r: int, b: int) -> None:
+        def sync(i: int, inst: Sync) -> None:
+            src, dst = (i, inst.pid) if inst.is_send else (inst.pid, i)
+            tok = token(inst.kind, src, dst, inst.bid)
+            if inst.is_send:
+                tok.send(streams[i])
+            else:
+                tok.wait(streams[i])
+
+        def move(i: int, r: int, group: Group, b: int) -> None:
             if group == Group.LD:  # take microbatch r in
                 if i == 0:
                     h[i] = embed(stage_params["embed"], tokens[r])
@@ -315,46 +373,19 @@ class PipelineForward:
                 bufs[i][b].copy_(h[i])
 
         def compute(i: int) -> None:
+            if cuda:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record(streams[i])
             h[i] = tf.forward_layers(cfg, layers, i * lps, min((i + 1) * lps, L), h[i])
+            if cuda:
+                ev[1].record(streams[i])
+                events[i].append(ev)
 
         def run(i: int, r: int, prologue: bool) -> None:
-            """Stage i's programs: the instructions before ICU_BA (the
-            prologue, once), or those from ICU_BA on (round r)."""
-            stream = streams[i]
-            for prog in (progs[i].ld, progs[i].cp, progs[i].st):
-                insts = prog.instructions
-                icu_ba = prog.progctrl.icu_ba
-                k, end = (0, icu_ba) if prologue else (icu_ba, len(insts))
-                while k < end:
-                    inst = insts[k]
-                    if isinstance(inst, Sync):
-                        src, dst = (i, inst.pid) if inst.is_send else (inst.pid, i)
-                        tok = token(inst.kind, src, dst, inst.bid)
-                        if inst.is_send:
-                            tok.send(stream)
-                        else:
-                            tok.wait(stream)
-                        counts[i][inst.op.name] += 1
-                        inst.step()
-                    elif isinstance(inst, DataMove):
-                        cyc = insts[k + 1] if k + 1 < end else None
-                        if not isinstance(cyc, AddrCyc):
-                            raise ValueError(f"{prog.name}[{k}]: a DataMove without the "
-                                             "AddrCyc that picks its buffer")
-                        move(prog.group, i, r, (inst.cur_ba - cyc.ba) // cyc.aoffs)
-                        inst.cur_ba = cyc.step(inst.cur_ba)
-                        k += 1
-                    elif isinstance(inst, Compute):
-                        if cuda:
-                            ev = (torch.cuda.Event(enable_timing=True),
-                                  torch.cuda.Event(enable_timing=True))
-                            ev[0].record(stream)
-                            compute(i)
-                            ev[1].record(stream)
-                            events[i].append(ev)
-                        else:
-                            compute(i)
-                    k += 1
+            """Stage i's programs: the prologue (once), or round r."""
+            walk_stage(progs[i], prologue, counts[i], sync=lambda inst: sync(i, inst),
+                       move=lambda group, b: move(i, r, group, b),
+                       compute=lambda: compute(i))
 
         def on(i: int):
             return torch.cuda.stream(streams[i]) if cuda else contextlib.nullcontext()

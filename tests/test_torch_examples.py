@@ -1,7 +1,8 @@
 """The port's example twins (``python -m repro_torch.examples.<name>``) in a
 subprocess on the CPU at reduced size: ``serve_llm`` drains its requests;
 ``train_lm`` resumed from a checkpoint ends with the uninterrupted run's
-params, and trains the recurrent configs (rwkv6-7b, zamba2-7b) too."""
+params, and trains the recurrent configs (rwkv6-7b, zamba2-7b) too;
+``pipeline_parallel`` runs its four steps, the ranks over gloo."""
 import math
 import os
 import re
@@ -63,3 +64,17 @@ def test_train_lm_trains_recurrent_archs(tmp_path, arch):
     losses = map(float, re.search(r"loss (\S+) -> (\S+)", out).groups())
     assert all(math.isfinite(x) for x in losses)
     assert (tmp_path / "ckpt_0000000004").is_dir()
+
+
+def test_pipeline_parallel_runs_its_four_steps():
+    """Plan, the simulator check, 4 ranks over gloo against the plain forward
+    (2e-3, the JAX pipeline's own tolerance), and the strategy switch."""
+    out = _run("pipeline_parallel")
+    assert "plan: 4 stages x 1 layers" in out and "WAIT_REQ" in out
+    assert out.count("deadlock=False") == 3 and "deadlock=True" not in out
+    err = float(re.search(r"max \|delta\| vs plain forward = (\S+);", out).group(1))
+    assert err <= 2e-3
+    sent, simulated = map(int, re.search(r"(\d+) REQ/ACK messages sent \(the simulator's "
+                                         r"(\d+)\)", out).groups())
+    assert sent == simulated == 30
+    assert "stages= 8 dp=  1" in out and "v5e" not in out

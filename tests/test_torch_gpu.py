@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention, wkv6, the SSD scan, the INT8 PU GEMM)
 against their plain PyTorch versions, the pipeline executor on CUDA
-streams against the plain forward, the MoE FFN and the patch and frame
+streams against the plain forward, the executor across processes (ranks on
+one card over gloo; over nccl where there are two cards), the MoE FFN and the patch and frame
 frontends on the card against the same code on the CPU, and training on
 the card: each kernel's gradient (``FlashAttention``, ``WKV6``, ``SSDScan``)
 against the plain version's, the kernels alone without grad, a train step
@@ -34,6 +35,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.runtime import optimizer as opt  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime import pipeline as pp  # noqa: E402
+from repro_torch.runtime import pipeline_ranks as pr  # noqa: E402
 from repro_torch.runtime import train  # noqa: E402
 
 # (b, s, H, G, hd, window, dtype, tol): the shapes and tolerances of
@@ -532,6 +534,64 @@ def test_pipeline_on_streams_matches_forward(cuda, L, S):
     torch.testing.assert_close(out.reshape(M * mb, s, -1), want, rtol=2e-3, atol=2e-3)
     assert fn.counts == pp.program_sync_counts(plan)
     assert [len(ms) for ms in fn.stage_ms] == [M] * S
+
+
+def _rank_call(L, S, backend):
+    """Reduced h2o-danube-3-4b at s = 96 (window 64), fp32, S ranks of the
+    executor across processes, their params shared from this process by CUDA
+    IPC; and the one-card executor, run first (it builds the flash kernel, so
+    the ranks only load it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("h2o-danube-3-4b").reduced(), num_layers=L)
+    params = tf.init_params(cfg, seed=0, dtype=torch.float32)
+    M, mb, s = 3, 2, 96
+    toks = torch.randint(0, cfg.vocab_size, (M, mb, s),
+                         generator=torch.Generator().manual_seed(1))
+    plan = pp.plan_pipeline(cfg, n_stages=S, microbatches=M, seq_len=s, microbatch_size=mb)
+    sp = pp.stack_stage_params(cfg, params, plan)
+    one = pp.make_pipeline_forward(cfg, plan)(sp, toks.cuda()).cpu()
+    slices = pr.PerRank([pr.stage_slice(cfg, sp, plan, r) for r in range(S)])
+    ranks = pr.spawn_stages(S, pr.forward_rank, cfg, plan, slices, toks, backend=backend,
+                            timeout_s=300)
+    want, _ = tf.forward(cfg, params, {"tokens": toks.reshape(M * mb, s).cuda()})
+    return plan, M, one, want.cpu(), ranks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,S", [(4, 2), (5, 2)])
+def test_ranks_on_one_card_over_gloo_match_the_one_card_executor(cuda, L, S):
+    """Two ranks on one card, the host transport (pinned SB/RB, each copy
+    synchronized): the logits of the one-card executor (1e-5; the same
+    kernels on the same inputs) and of the plain forward (2e-3), the
+    programs' token operations, a Compute time and the messages a round."""
+    plan, M, one, want, ranks = _rank_call(L, S, "gloo")
+    out = ranks[-1]["logits"]
+    torch.testing.assert_close(out, one, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.reshape(want.shape), want, rtol=2e-3, atol=2e-3)
+    assert [r["counts"] for r in ranks] == pp.program_sync_counts(plan)
+    assert [len(r["stage_ms"]) for r in ranks] == [M] * S
+    kinds = [[m[0] for m in r["messages"]] for r in ranks]
+    assert [k.count("d2h") for k in kinds] == [M * (i < S - 1) for i in range(S)]
+    assert [k.count("h2d") for k in kinds] == [M * (i > 0) for i in range(S)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [2, 4])
+def test_ranks_over_nccl_one_card_a_rank(cuda, S):
+    """The device transport (SB/RB on the cards, REQs and ACKs in process
+    groups of their own), S ranks on S cards: held to the one-card
+    executor and the plain forward. Runs only where there are S cards."""
+    if torch.cuda.device_count() < S:
+        pytest.skip(f"the nccl transport takes one card a rank; this machine has "
+                    f"{torch.cuda.device_count()}, not {S}")
+    plan, M, one, want, ranks = _rank_call(4, S, "nccl")
+    out = ranks[-1]["logits"]
+    torch.testing.assert_close(out, one, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.reshape(want.shape), want, rtol=2e-3, atol=2e-3)
+    assert [r["counts"] for r in ranks] == pp.program_sync_counts(plan)
+    assert [len(r["stage_ms"]) for r in ranks] == [M] * S
+    assert all(r["messages"] == [] or {m[0] for m in r["messages"]} == {"send_recv"}
+               for r in ranks)  # the device transport's copies stay on the cards
 
 
 # ------------------------------------------- MoE and frontends, card vs CPU --

@@ -198,9 +198,9 @@ def test_wait_on_a_token_never_sent_raises():
 def test_other_stacks_are_refused_by_name(arch):
     cfg = get_config(arch).reduced()
     plan = pp.plan_pipeline(cfg, n_stages=2, microbatches=2, seq_len=16, microbatch_size=1)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 6"):
+    with pytest.raises(ValueError, match="ROADMAP queue 3: uniform dense stacks only"):
         pp.make_pipeline_forward(cfg, plan, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 6"):
+    with pytest.raises(ValueError, match="ROADMAP queue 3: uniform dense stacks only"):
         pp.stack_stage_params(cfg, {"blocks": []}, plan)
 
 
