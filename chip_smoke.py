@@ -74,7 +74,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    backward of wkv6 and of the SSD scan at the training shape; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
-   the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch.
+   the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch;
+8. dse: the paper's three-step DSE in the port (no kernel): ResNet-50 on the
+   U50's 5 + 5 PUs (the Step 1/2/3 counts, DP-A/B/C); the float64 torch
+   scorer on the card against the numpy scorer at 35, 1088 and 4224
+   configurations (every field at rtol 1e-9 / atol 1e-12; both timed warm,
+   their phases, the torch scoring's device time); the H100-pool deployment
+   DSE at 8 cards (``gpu_dse.<arch>`` rows) and its prediction for the h2o
+   pipeline beside what four cards measured.
 
 Every launch count is set to 0 just before a path's first call and read just
 after its last: each of the path's kernels must have launched its expected
@@ -100,6 +107,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.compiler import fuse, zoo  # noqa: E402
+from repro_torch.compiler.graph import WEIGHTED_OPS  # noqa: E402
 
 SEED = 0
 ARCH = "qwen3-0.6b"
@@ -176,36 +187,25 @@ WKV6_TOL, WKV6_PREFILL_TOL, WKV6_TILE_TOL, WKV6_CHUNKED_TOL = 2e-4, 1e-4, 1e-5, 
 # rtol = atol = 1e-4 as the wkv6 prefill is.
 # The tile only decides when inputs are staged: tiles agree bit for bit.
 SSD_TOL, SSD_SWEEP_TOL, SSD_CHUNKED_TOL, SSD_PREFILL_TOL = 2e-4, 3e-4, 2e-4, 1e-4
-# The GEMM nodes of ResNet-50 at 256x256 as the repo's compiler lowers and
-# fuses them (repro.compiler: fuse(zoo.resnet50(256))), one row per distinct
-# shape, named by its first node: (name, m = output channels, n = positions
-# per image, k = in_ch * kh * kw, relu, residual, count). 54 nodes; every one
-# requantises by RESNET50_SHIFT. tests/test_torch_gemm_int8.py holds the table
-# to the lowering.
-RESNET50_GEMMS = [
-    ("conv1", 64, 16384, 147, True, False, 1),
-    ("layer1.0.downsample", 256, 4096, 64, False, False, 1),
-    ("layer1.0.conv1", 64, 4096, 64, True, False, 1),
-    ("layer1.0.conv2", 64, 4096, 576, True, False, 3),
-    ("layer1.0.conv3+add", 256, 4096, 64, True, True, 3),
-    ("layer1.1.conv1", 64, 4096, 256, True, False, 2),
-    ("layer2.0.downsample", 512, 1024, 256, False, False, 1),
-    ("layer2.0.conv1", 128, 4096, 256, True, False, 1),
-    ("layer2.0.conv2", 128, 1024, 1152, True, False, 4),
-    ("layer2.0.conv3+add", 512, 1024, 128, True, True, 4),
-    ("layer2.1.conv1", 128, 1024, 512, True, False, 3),
-    ("layer3.0.downsample", 1024, 256, 512, False, False, 1),
-    ("layer3.0.conv1", 256, 1024, 512, True, False, 1),
-    ("layer3.0.conv2", 256, 256, 2304, True, False, 6),
-    ("layer3.0.conv3+add", 1024, 256, 256, True, True, 6),
-    ("layer3.1.conv1", 256, 256, 1024, True, False, 5),
-    ("layer4.0.downsample", 2048, 64, 1024, False, False, 1),
-    ("layer4.0.conv1", 512, 256, 1024, True, False, 1),
-    ("layer4.0.conv2", 512, 64, 4608, True, False, 3),
-    ("layer4.0.conv3+add", 2048, 64, 512, True, True, 3),
-    ("layer4.1.conv1", 512, 64, 2048, True, False, 2),
-    ("fc", 1000, 1, 2048, False, False, 1),
-]
+
+
+def resnet50_gemms() -> list[tuple]:
+    """The GEMM nodes of ResNet-50 at 256x256 as the port's compiler lowers
+    and fuses them (``fuse(zoo.resnet50(256))``), one row per distinct shape
+    in the order of its first node, named by that node: (name, m = output
+    channels, n = positions per image, k = in_ch * kh * kw, relu, residual,
+    count). 54 nodes in 22 rows; every one requantises by RESNET50_SHIFT.
+    tests/test_torch_gemm_int8.py holds the table to the JAX package's
+    lowering."""
+    rows: dict[tuple, list] = {}
+    for nd in fuse(zoo.resnet50(256)).nodes:
+        if nd.op in WEIGHTED_OPS:
+            key = (nd.m, nd.n, nd.k, nd.relu, nd.residual_input is not None)
+            rows.setdefault(key, [nd.name, *key, 0])[-1] += 1
+    return [tuple(row) for row in rows.values()]
+
+
+RESNET50_GEMMS = resnet50_gemms()
 RESNET50_SHIFT = 7
 RESNET50_BATCHES, RESNET50_ITERS = (1, 16), 10
 # the gemm_int8 row of the kernels line: layer3's 3x3 conv, the most frequent
@@ -214,6 +214,20 @@ GEMM_TIMED = ("layer3.0.conv2", 16)
 PIPE_ARCH = "h2o-danube-3-4b"
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN = 4, 4, 1, 4608
 PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
+# the dse phase: ResNet-50 at 256x256 on the paper's U50 array (5 PU1x + 5
+# PU2x) and the torch scorer on the card against the numpy scorer over the
+# ResNet-50 analysis at three pools built as the U50 is (PU1x on SLR 0, PU2x
+# on SLR 1): 35, 1088 and 4224 configurations, at the tolerance the JAX
+# package holds its accelerator scorer to (tests/test_batched_dse.py:182-184);
+# each backend timed warm over the whole score_details call, DSE_REPEATS
+# times in turns, the median kept
+DSE_POOLS, DSE_RTOL, DSE_ATOL, DSE_REPEATS = ((5, 5), (32, 32), (64, 64)), 1e-9, 1e-12, 5
+GOPS_224EQ, U50_PEAK_TOPS = 7.72, 4.608  # examples/resnet50_dse.py
+# the h2o pipeline across four ranks over NCCL, one rank a card, as measured
+# on four H100s at 700 W (PERF.md section 6, tools/pipeline_ranks_cards.py):
+# a warm call and the range of a stage's Compute; set beside gpu_deploy's
+# prediction for the same deployment
+PIPE_NCCL_CALL_MS, PIPE_NCCL_STAGE_MS = 1486.0, (196.6, 202.2)
 # the executor across processes: PIPE_STAGES ranks on this card over gloo,
 # calls of it (the first also starts each rank's cuBLAS and pins its
 # buffers), the bound of the whole spawn, and how far its logits may be from
@@ -1986,6 +2000,118 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
     return launches
 
 
+def dse_pool(n1: int, n2: int) -> list:
+    """``n1`` PU1x on SLR 0 and ``n2`` PU2x on SLR 1, built as
+    ``make_u50_system`` builds the U50's 5 + 5."""
+    from repro_torch.core.pu import PUSpec
+
+    return ([PUSpec(pid=i, kind="PU1x", sa_rows=64, sa_cols=4, slr=0) for i in range(n1)]
+            + [PUSpec(pid=n1 + i, kind="PU2x", sa_rows=64, sa_cols=8, slr=1)
+               for i in range(n2)])
+
+
+def drive_dse(kernel_mods, report) -> None:
+    """The paper's three-step DSE in the port. ResNet-50 at 256x256 on the
+    U50's 5 + 5 PUs through ``explore(tolerance=0.01)``: the Step 1/2/3
+    counts and DP-A/B/C, as examples/resnet50_dse.py prints them. Then the
+    torch scorer on the card against the numpy scorer at each of DSE_POOLS,
+    every field at DSE_RTOL / DSE_ATOL (a mismatch raises), both timed warm
+    over the whole ``score_details`` call with their ``PROFILE`` phases and
+    the torch scoring's device time from CUDA events. Then the H100-pool
+    deployment DSE at 8 cards for four architectures, and its prediction
+    for the h2o pipeline beside what four cards measured. The DSE runs no
+    hand-written kernel: every launch count is set to 0 before and must
+    read 0 after."""
+    from repro_torch import hw
+    from repro_torch.benchmarks import gpu_dse
+    from repro_torch.compiler import analyze
+    from repro_torch.configs import get_config
+    from repro_torch.dse import batched, explore
+    from repro_torch.dse.gpu_deploy import enumerate_deployments
+    from repro_torch.runtime.pipeline import layer_cost_seconds
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    t_phase = time.time()
+    g = zoo.resnet50(256)
+    gopf = 2 * g.total_macs() / 1e9
+    t0 = time.perf_counter()
+    res = explore(g, tolerance=0.01)
+    print(f"dse resnet50 @256 on the U50's 5 + 5 PUs, tolerance 0.01 "
+          f"({time.perf_counter() - t0:.3f} s on the host): step 1 {len(res.single)} "
+          f"single-batch configurations, step 2 {len(res.multi)} multi-batch schedules, "
+          f"step 3 Pareto frontier keeps {len(res.multi_frontier)}")
+    for name, dp in (("DP-A", res.dp_a), ("DP-B", res.dp_b), ("DP-C", res.dp_c)):
+        gops = dp.throughput * gopf
+        print(f"dse {name}: batch={dp.batch:2d}  fps(224eq)={gops / GOPS_224EQ:6.1f}  "
+              f"latency={dp.latency * 1e3:5.2f} ms  CE={gops / (U50_PEAK_TOPS * 1e3):.3f}  "
+              f"configs={'+'.join(f'({a},{b})' for a, b in dp.configs)}")
+    if (len(res.single), res.dp_c.batch) != (35, 10):
+        raise AssertionError(f"dse: {len(res.single)} single-batch configurations and "
+                             f"DP-C at batch {res.dp_c.batch}, want 35 and 10")
+
+    fields = ("fps", "latency", "tops", "pbe", "round_seconds", "uncoupled_seconds",
+              "binding_bound")
+    for n1, n2 in DSE_POOLS:
+        pus = dse_pool(n1, n2)
+        ana = analyze(g, pus)
+        configs = [(a, b) for a in range(n1 + 1) for b in range(n2 + 1) if a + b]
+        wall = {"numpy": [], "torch": []}
+        for rep in range(DSE_REPEATS + 1):  # the first round warms both
+            for backend in (("numpy", "torch") if rep % 2 else ("torch", "numpy")):
+                batched.reset_profile()
+                t0 = time.perf_counter()
+                sc = batched.score_details(ana, configs, pus=pus, backend=backend,
+                                           device="cuda")
+                dt = time.perf_counter() - t0
+                if rep:
+                    wall[backend].append(dt)
+                if backend == "numpy":
+                    ref, ref_prof = sc, dict(batched.PROFILE)
+                else:
+                    got, got_prof = sc, dict(batched.PROFILE)
+        errs = {}
+        for f in fields:
+            a, b = getattr(got, f), getattr(ref, f)
+            if not (isinstance(a, np.ndarray) and a.dtype == np.float64 and a.shape == b.shape):
+                raise AssertionError(f"dse torch scorer {f}: {type(a).__name__} "
+                                     f"{getattr(a, 'dtype', None)}, want float64 {b.shape}")
+            np.testing.assert_allclose(a, b, rtol=DSE_RTOL, atol=DSE_ATOL,
+                                       err_msg=f"dse torch scorer on cuda, {f}, {n1} + {n2}")
+            errs[f] = float(np.abs(a - b).max())
+        med = {k: float(np.median(v)) for k, v in wall.items()}
+        report(f"dse scorer resnet50 {n1} + {n2} PUs, {len(configs)} configs: torch on cuda "
+               f"within rtol {DSE_RTOL:g} / atol {DSE_ATOL:g} of numpy on every field (max |diff| "
+               f"{json.dumps(errs)}); score_details warm, median of {DSE_REPEATS}: numpy "
+               f"{med['numpy'] * 1e3:.3f} ms, torch {med['torch'] * 1e3:.3f} ms; phases s "
+               f"numpy {json.dumps({k: round(v, 6) for k, v in ref_prof.items()})}, torch "
+               f"{json.dumps({k: round(v, 6) for k, v in got_prof.items()})} (score_device: "
+               f"CUDA events around the torch scoring)")
+
+    for row in gpu_dse.run():
+        print(row)
+    cfg = get_config(PIPE_ARCH)
+    S, M = PIPE_STAGES, PIPE_MICROBATCHES
+    dep = next(d for d in enumerate_deployments(
+        cfg, cards=S, seq_len=PIPE_LEN, microbatch=PIPE_MB, microbatches=M,
+        peak_flops=hw.FP32_FLOPS) if (d.stages, d.replicas, d.tensor) == (S, 1, 1))
+    layer_s = layer_cost_seconds(cfg, PIPE_LEN, PIPE_MB, peak_flops=hw.FP32_FLOPS)
+    stage_s = dep.latency / (S + M - 1)
+    lo, hi = PIPE_NCCL_STAGE_MS
+    print(f"dse gpu_deploy {PIPE_ARCH} {dep.label} at {S} cards, {M} microbatches of "
+          f"{PIPE_MB} x {PIPE_LEN}, fp32 CUDA-core rate: predicted {layer_s * 1e3:.2f} ms a "
+          f"layer, {stage_s * 1e3:.1f} ms a stage of {cfg.num_layers // S} layers, "
+          f"{dep.latency * 1e3:.0f} ms a call of {S + M - 1} stage-times; measured on four "
+          f"H100s over NCCL (PERF.md section 6): {PIPE_NCCL_CALL_MS} ms a call "
+          f"({dep.latency * 1e3 / PIPE_NCCL_CALL_MS:.3f} of it predicted), {lo}-{hi} ms a "
+          f"stage's Compute ({stage_s * 1e3 / hi:.3f}-{stage_s * 1e3 / lo:.3f})")
+
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    if any(launches.values()):
+        raise AssertionError(f"dse phase launched {launches}, want none")
+    report(f"dse phase: {time.time() - t_phase:.1f} s, launches {json.dumps(launches)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1994,7 +2120,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card only", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import hw
     from repro_torch.configs import get_config
     from repro_torch.kernels import SOURCES, _build
@@ -2149,6 +2274,9 @@ def main() -> int:
                 "launches": launches["gemm_int8"], "max_abs_err": gemm_err,
                 **time_gemm(gemm_kernel, hw, report)}
     gemm_shape_table(gemm_kernel, report)
+
+    # ------------------------------------------------------------------ dse --
+    drive_dse(kernel_mods, report)
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row]}))

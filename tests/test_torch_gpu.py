@@ -5,7 +5,8 @@ one card over gloo; over nccl where there are two cards), the MoE FFN and the pa
 frontends on the card against the same code on the CPU, and training on
 the card: each kernel's gradient (``FlashAttention``, ``WKV6``, ``SSDScan``)
 against the plain version's, the kernels alone without grad, a train step
-against the same step on the CPU. This file imports no JAX (the
+against the same step on the CPU, and the DSE's float64 torch scorer on the
+card against its numpy scorer. This file imports no JAX (the
 machine with the card has none); every test here needs a CUDA device and
 skips without one:
 
@@ -901,3 +902,32 @@ def test_train_step_on_cuda_matches_cpu(cuda, monkeypatch, arch, S, remat):
                         tree_leaves(out["cpu"][0][name])):
             torch.testing.assert_close(a.cpu(), w, rtol=0,
                                        atol=1e-4 * float(w.abs().max()) + 1e-30)
+
+
+# ---------------------------------------------------- the DSE's torch scorer --
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [(5, 5), (32, 32)], ids=["u50", "32+32"])
+@pytest.mark.parametrize("graph", ["tiny_cnn", "resnet50"])
+def test_dse_torch_scorer_on_cuda_matches_numpy(cuda, graph, pool):
+    """The float64 torch scorer on the card against the numpy scorer on every
+    field at the JAX package's accelerator-scorer tolerance; the results come
+    back as numpy float64. The pools are built as the U50's 5 + 5 (PU1x on
+    SLR 0, PU2x on SLR 1)."""
+    from repro_torch.compiler import analyze, zoo
+    from repro_torch.core.pu import PUSpec
+    from repro_torch.dse import batched
+
+    n1, n2 = pool
+    pus = ([PUSpec(pid=i, kind="PU1x", sa_rows=64, sa_cols=4, slr=0) for i in range(n1)]
+           + [PUSpec(pid=n1 + i, kind="PU2x", sa_rows=64, sa_cols=8, slr=1) for i in range(n2)])
+    g = zoo.tiny_cnn(channels=(16, 32, 32), hw=16) if graph == "tiny_cnn" else zoo.resnet50(256)
+    an = analyze(g, pus)
+    configs = [(a, b) for a in range(n1 + 1) for b in range(n2 + 1) if a + b]
+    ref = batched.score_details(an, configs, pus=pus)
+    got = batched.score_details(an, configs, pus=pus, backend="torch")  # device None: the card
+    assert got.configs == ref.configs
+    for f in ("fps", "latency", "tops", "pbe", "round_seconds", "uncoupled_seconds",
+              "binding_bound"):
+        a = getattr(got, f)
+        assert isinstance(a, np.ndarray) and a.dtype == np.float64, f
+        np.testing.assert_allclose(a, getattr(ref, f), rtol=1e-9, atol=1e-12, err_msg=f)
