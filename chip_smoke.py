@@ -81,7 +81,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    configurations (every field at rtol 1e-9 / atol 1e-12; both timed warm,
    their phases, the torch scoring's device time); the H100-pool deployment
    DSE at 8 cards (``gpu_dse.<arch>`` rows) and its prediction for the h2o
-   pipeline beside what four cards measured.
+   pipeline beside what four cards measured;
+9. deploy: the paper's main flow in the port (host code, no kernel):
+   ResNet-50 @256's DP-A, DP-C and DP-B deployed, verified and run on one
+   fixed simulated U50, switching from one to the next (each within 10 % of
+   its prediction, no deadlock, each switch equal to a fresh load);
+   ``explore(validate=2)`` below 10 %; a two-tenant co-exploration with
+   ``validate=2`` and a single- to two-tenant hot swap; a prefill -> decode
+   hot swap within 5 %; the static verifier clean on the 7 targets of
+   ``python -m repro_torch.verify --quick`` and catching each of
+   ``mutate.py``'s five defects.
 
 Every launch count is set to 0 just before a path's first call and read just
 after its last: each of the path's kernels must have launched its expected
@@ -228,6 +237,10 @@ GOPS_224EQ, U50_PEAK_TOPS = 7.72, 4.608  # examples/resnet50_dse.py
 # a warm call and the range of a stage's Compute; set beside gpu_deploy's
 # prediction for the same deployment
 PIPE_NCCL_CALL_MS, PIPE_NCCL_STAGE_MS = 1486.0, (196.6, 202.2)
+# the deploy phase's gates, as the JAX package's tests/test_deploy.py holds
+# them: a simulated rate within 10 % of the analytic one (5 % for decode,
+# :457-493), a switch-then-run equal to a fresh load-then-run at rel 1e-9 (:239)
+DEPLOY_REL, DECODE_REL, DEPLOY_SWITCH_REL = 0.10, 0.05, 1e-9
 # the executor across processes: PIPE_STAGES ranks on this card over gloo,
 # calls of it (the first also starts each rank's cuBLAS and pins its
 # buffers), the bound of the whole spawn, and how far its logits may be from
@@ -2112,6 +2125,207 @@ def drive_dse(kernel_mods, report) -> None:
     report(f"dse phase: {time.time() - t_phase:.1f} s, launches {json.dumps(launches)}")
 
 
+def _within(what: str, meas: float, pred: float, rel: float) -> float:
+    """Raise unless ``meas`` is within ``rel`` of ``pred``; returns the error."""
+    err = abs(meas - pred) / pred
+    if not err < rel:
+        raise AssertionError(f"{what}: measured {meas!r}, predicted {pred!r}, "
+                             f"{err:.4f} off, want < {rel}")
+    return err
+
+
+def _same_as_fresh(what: str, swapped, dep) -> None:
+    """A switch-then-run equals a fresh machine's load-then-run."""
+    from repro_torch.deploy import System
+
+    fresh = System().load(dep).run()
+    a, b = swapped.aggregate_fps(warmup=2), fresh.aggregate_fps(warmup=2)
+    if swapped.round_end_cycles != fresh.round_end_cycles or abs(a - b) > DEPLOY_SWITCH_REL * b:
+        raise AssertionError(f"{what}: switched {a!r} fps, fresh load {b!r}, round ends "
+                             f"differ: {swapped.round_end_cycles != fresh.round_end_cycles}")
+
+
+def drive_deploy(kernel_mods, report) -> None:
+    """The paper's main flow in the port: a DSE point compiled into per-PU
+    programs, verified, run on one fixed simulated U50 and switched to
+    another strategy without reconfiguration (host code, no kernel).
+
+    a. ResNet-50 @256 on the U50's 5 + 5 PUs: DP-A (6 rounds), DP-C and DP-B
+       (5) deployed and verified, one System loading DP-A and switching to
+       DP-C, then DP-B; each within DEPLOY_REL of its predicted throughput,
+       no deadlock, each switch equal to a fresh load (DEPLOY_SWITCH_REL);
+    b. ``explore(validate=2)``: every record's rel_err below DEPLOY_REL;
+    c. multi-tenant: ``explore_multi`` on examples/multi_tenant.py's small
+       pair with ``validate=2``, then its single-tenant -> two-tenant hot
+       swap, each tenant within DEPLOY_REL of its analytic rate;
+    d. decode: examples/decode_serving.py's --small prefill -> decode hot
+       swap, within DECODE_REL, equal to a fresh load;
+    e. the static verifier: the 7 targets of ``python -m repro_torch.verify
+       --quick`` clean, and each of mutate.py's five defects caught with the
+       codes the JAX package's tests expect (and real at runtime).
+    Every launch count is set to 0 before and must read 0 after."""
+    import repro_torch.verify.__main__ as verify_cli
+    from repro_torch.deploy import Strategy, System, Workload, compile_deployment
+    from repro_torch.dse import explore, explore_multi
+    from repro_torch.verify import Code, check_isolation
+    from repro_torch.verify import mutate
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    t_phase = time.time()
+    steps = {}
+
+    # a. ResNet-50: DSE -> deploy -> run -> switch -> switch
+    t0 = time.perf_counter()
+    g = zoo.resnet50(256)
+    gopf = 2 * g.total_macs() / 1e9
+    res = explore(g, tolerance=0.01)
+    deps = {"DP-A": res.deploy(res.dp_a, rounds=6), "DP-C": res.deploy(res.dp_c, rounds=5),
+            "DP-B": res.deploy(res.dp_b, rounds=5)}  # verify=True: each is verified clean
+    system = System()
+    runs = {}
+    for i, (name, dep) in enumerate(deps.items()):
+        session = system.load(dep) if i == 0 else system.switch(dep)
+        runs[name] = session.run()
+    for name, dep in deps.items():
+        run = runs[name]
+        meas, pred = run.aggregate_fps(warmup=2), dep.predicted_throughput
+        if run.deadlocked:
+            raise AssertionError(f"deploy resnet50 {name} deadlocked")
+        err = _within(f"deploy resnet50 {name}", meas, pred, DEPLOY_REL)
+        n_inst = sum(p.total_instructions() for p in dep.programs())
+        print(f"deploy resnet50 {name}: measured {meas * gopf / GOPS_224EQ:.1f} fps(224eq) vs "
+              f"predicted {pred * gopf / GOPS_224EQ:.1f} ({err * 100:.2f}% off), {dep.batch} "
+              f"member pipeline(s), {n_inst} instructions on {len(dep.programs())} PUs, "
+              f"deadlock={run.deadlocked}")
+    for name in ("DP-C", "DP-B"):
+        _same_as_fresh(f"deploy resnet50 switch to {name}", runs[name], deps[name])
+    print(f"deploy resnet50 session: {[(s.name, s.tenants) for s in system.session.swaps]}; "
+          f"history {[name for name, _ in system.history]}; each switch equal to a fresh load")
+    steps["a resnet50 dse/deploy/run/switch"] = time.perf_counter() - t0
+
+    # b. explore(validate=2)
+    t0 = time.perf_counter()
+    val = explore(g, validate=2).validation
+    if len(val) != 2 or not all(r.rel_err < DEPLOY_REL for r in val):
+        raise AssertionError(f"deploy validate: {val}")
+    print(f"deploy validate=2: {[(r.configs, round(r.rel_err, 6)) for r in val]}")
+    steps["b explore validate=2"] = time.perf_counter() - t0
+
+    # c. multi-tenant (examples/multi_tenant.py --small)
+    t0 = time.perf_counter()
+    g_a = zoo.tiny_cnn(channels=(16, 32, 32), hw=16)
+    g_b = zoo.transformer_encoder("qwen3-0.6b", seq_len=64, depth=1)
+    multi = explore_multi([g_a, g_b], validate=2)
+    if len(multi.validation) != 2 or not all(e < DEPLOY_REL for r in multi.validation
+                                            for e in r.rel_errs):
+        raise AssertionError(f"deploy multi-tenant validate: {multi.validation}")
+    best_a = max(multi.singles[0], key=lambda p: p.fps)
+    dep_solo = compile_deployment(g_a, Strategy.single(*best_a.config), rounds=5)
+    dep_two = multi.deploy(multi.balanced, rounds=4)
+    system = System()
+    solo = system.load(dep_solo).run()
+    two = system.switch(dep_two).run()
+    if solo.deadlocked or two.deadlocked:
+        raise AssertionError("deploy multi-tenant deadlocked")
+    rates = two.fps_by_workload(warmup=2)
+    errs = {label: _within(f"deploy multi-tenant {label}", meas, pred, DEPLOY_REL)
+            for (label, meas), pred in zip(rates.items(), multi.balanced.fps)}
+    _same_as_fresh("deploy multi-tenant switch", two, dep_two)
+    print(f"deploy multi-tenant: {len(multi.points)} joint placements, frontier "
+          f"{len(multi.frontier)}, balanced {multi.balanced}; validate=2 rel errs "
+          f"{[tuple(round(e, 6) for e in r.rel_errs) for r in multi.validation]}; solo "
+          f"{solo.aggregate_fps(warmup=2):.1f} fps -> two tenants "
+          f"{json.dumps({k: round(v, 1) for k, v in rates.items()})} fps "
+          f"({json.dumps({k: round(e * 100, 2) for k, e in errs.items()})} % off)")
+    steps["c multi-tenant"] = time.perf_counter() - t0
+
+    # d. decode (examples/decode_serving.py --small)
+    t0 = time.perf_counter()
+    prefill = zoo.transformer_encoder("qwen3-0.6b", seq_len=64, depth=4)
+    decode = zoo.transformer_decoder("qwen3-0.6b", seq_len=64, decode_steps=8, depth=4)
+    dres = explore(decode)
+    dep_pre = compile_deployment(prefill, Strategy.single(2, 2), rounds=4)
+    dep_dec = dres.deploy(dres.dp_a)
+    system = System()
+    pre = system.load(dep_pre).run()
+    dec = system.switch(dep_dec).run()
+    back = system.switch(dep_pre).run()
+    if pre.deadlocked or dec.deadlocked or back.deadlocked:
+        raise AssertionError("deploy decode deadlocked")
+    err = _within("deploy decode DP-A", dec.aggregate_fps(warmup=2),
+                  dep_dec.predicted_throughput, DECODE_REL)
+    _same_as_fresh("deploy decode switch", dec, dep_dec)
+    print(f"deploy decode: prefill {pre.aggregate_fps(warmup=2):.1f} seq/s -> decode DP-A "
+          f"{dec.aggregate_fps(warmup=2):.1f} tok/s over {dec.members[0].rounds} steps vs "
+          f"{dep_dec.predicted_throughput:.1f} analytic ({err * 100:.2f}% off) -> prefill "
+          f"{back.aggregate_fps(warmup=2):.1f} seq/s, loads={len(system.history)}")
+    steps["d decode"] = time.perf_counter() - t0
+
+    # e. the static verifier: the --quick sweep, then the five planted defects
+    t0 = time.perf_counter()
+    if verify_cli.main(["--quick"]) != 0:
+        raise AssertionError("deploy verify --quick: a target has errors")
+    cnn = compile_deployment(zoo.tiny_cnn(), Strategy.single(2, 1), rounds=4)
+    enc = compile_deployment(zoo.transformer_encoder(seq_len=64, depth=2), Strategy.single(2, 2),
+                             rounds=8)
+    caught = {}
+
+    def check(name, rep, codes, real):
+        missing = [c.name for c in codes if not rep.has(c)]
+        if rep.ok or missing or not real:
+            raise AssertionError(f"deploy mutation {name}: ok={rep.ok}, missing {missing}, "
+                                 f"real at runtime {real}")
+        caught[name] = sorted({d.code.name for d in rep.errors})
+
+    for name, dep in (("drop_send_ack", cnn), ("swap_bids", cnn), ("shrink_region", enc),
+                      ("overflow_field", cnn)):
+        m = dep.members[0]
+        progs, mem, specs = m.compiled.programs, m.compiled.mem, m.compiled.pu_specs
+        if name == "drop_send_ack":
+            mut = mutate.drop_send_ack(progs)
+            codes = (Code.SYNC_TOKEN_STARVE, Code.HAZ_UNGUARDED_READ)
+            real = mutate.simulate_raw(mut.programs, dep.pus)[0].deadlocked
+        elif name == "swap_bids":
+            mut = mutate.swap_bids(progs)
+            codes = (Code.HAZ_BID_MISMATCH,)
+            real = mutate.simulate_raw(mut.programs, dep.pus)[0].deadlocked
+        elif name == "shrink_region":  # tid 7, the JAX package's tests' witness
+            mut = mutate.shrink_region(progs, mem, tid=7)
+            codes = (Code.HAZ_PINGPONG,)
+            real = bool(mutate.stale_reads(mutate.simulate_raw(mut.programs, dep.pus,
+                                                               trace=True)[1]))
+        else:
+            mut, truncated = mutate.overflow_field(progs)
+            codes = (Code.LINT_FIELD_OVERFLOW,)
+            real = (mutate.simulate_raw(mut.programs, dep.pus)[0].end_cycles
+                    != mutate.simulate_raw(truncated, dep.pus)[0].end_cycles)
+        rep = mutate.verify_mutation(mut, mem=mem, pu_specs=specs)
+        if name == "swap_bids" and not (rep.has(Code.SYNC_STALL)
+                                        or rep.has(Code.SYNC_TOKEN_STARVE)):
+            raise AssertionError("deploy mutation swap_bids: no sync diagnostic")
+        check(name, rep, codes, real)
+    pair = compile_deployment(None, Strategy.tenants([
+        (Workload(zoo.tiny_cnn(), "cnn"), 1, 1),
+        (Workload(zoo.transformer_encoder(seq_len=64, depth=2), "enc"), 1, 1)]), rounds=4)
+    muts, _ = mutate.hijack_channel([m.compiled.programs for m in pair.members])
+    rep = check_isolation([(f"m{m.index}", progs, m.compiled.mem)
+                           for m, progs in zip(pair.members, muts)])
+    member_of = {p.pid: m.index for m, progs in zip(pair.members, muts) for p in progs}
+    trace = mutate.simulate_raw([p for progs in muts for p in progs], pair.pus, trace=True)[1]
+    check("hijack_channel", rep, (Code.HAZ_CHANNEL_SHARED, Code.HAZ_MEMBER_OVERLAP),
+          bool(mutate.runtime_hazards(trace, member_of=member_of)))
+    print(f"deploy verifier: 7 --quick targets clean; each defect caught: {json.dumps(caught)}")
+    steps["e verifier"] = time.perf_counter() - t0
+
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    if any(launches.values()):
+        raise AssertionError(f"deploy phase launched {launches}, want none")
+    report(f"deploy phase: {time.time() - t_phase:.1f} s on the host "
+           f"({json.dumps({k: round(v, 3) for k, v in steps.items()})} s a step), "
+           f"launches {json.dumps(launches)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2277,6 +2491,9 @@ def main() -> int:
 
     # ------------------------------------------------------------------ dse --
     drive_dse(kernel_mods, report)
+
+    # --------------------------------------------------------------- deploy --
+    drive_deploy(kernel_mods, report)
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row]}))

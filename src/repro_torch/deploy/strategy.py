@@ -29,7 +29,6 @@ from ..compiler.graph import Graph
 
 # Normalization layers the deprecation warning walks past, so the warning
 # is attributed to whoever actually wrote the legacy tuple form.
-# (deployment.py comes with the rest of deploy/ in a later slice)
 _STRATEGY_SHIMS = (__name__, f"{__package__}.deployment")
 
 

@@ -60,12 +60,6 @@ from ..compiler.graph import Graph
 from ..core.pu import PUSpec, make_u50_system
 from .pareto import pareto_front, pareto_front_bruteforce
 
-# Deploying a design point compiles it through deploy/ and verify/, which the
-# port has not copied yet: DSEResult.deploy / simulate and validate=N raise.
-_DEPLOY_ITEM = ("the port's deploy/ and verify/ are not copied yet "
-                "(ROADMAP queue 1 item 18): deploy, simulate and validate=N "
-                "run in the JAX package only")
-
 PU1X_TOPS = 0.3072
 PU2X_TOPS = 0.6144
 
@@ -366,15 +360,28 @@ class DSEResult:
     validation: list[ValidationRecord] = field(default_factory=list)
 
     def deploy(self, point_or_schedule, *, rounds: Optional[int] = None):
-        """Compile a Step-1 point / Step-2 schedule into an executable
-        Deployment (in the JAX package). The port raises
-        ``NotImplementedError``: deploying needs its copy of deploy/ and
-        verify/."""
-        raise NotImplementedError(_DEPLOY_ITEM)
+        """Compile any Step-1 point / Step-2 schedule (or raw config tuple)
+        of this exploration into an executable Deployment — every DSE design
+        point is one call away from the simulator. Instruction programs are
+        generated here (and only here): the exploration itself never runs
+        codegen. ``rounds=None`` keeps the per-workload default (explicit
+        Workload.rounds, else one full decode window for decode graphs,
+        else 16)."""
+        if self.graph is None:
+            raise ValueError("this DSEResult carries no graph to deploy")
+        from ..deploy import Strategy, compile_deployment
+
+        return compile_deployment(
+            self.workload if self.workload is not None else self.graph,
+            Strategy.of(point_or_schedule), pus=self.pus, rounds=rounds
+        )
 
     def simulate(self, point_or_schedule, *, rounds: Optional[int] = None):
-        """Deploy + execute on a fresh fixed system (raises, as ``deploy``)."""
-        raise NotImplementedError(_DEPLOY_ITEM)
+        """Deploy + execute on a fresh fixed system; returns the SimResult."""
+        from ..deploy import System
+
+        dep = self.deploy(point_or_schedule, rounds=rounds)
+        return System(pus=self.pus).load(dep).run()
 
     # paper design points -----------------------------------------------------
     @property
@@ -505,13 +512,20 @@ class MultiDSEResult:
 
     def deploy(self, point: MultiTenantPoint, *, rounds: Optional[int] = None):
         """Compile the joint placement into an executable multi-tenant
-        Deployment (in the JAX package). The port raises
-        ``NotImplementedError``, as ``DSEResult.deploy``."""
-        raise NotImplementedError(_DEPLOY_ITEM)
+        Deployment — every co-exploration point is one call away from the
+        simulator, exactly like single-model DSE points. ``rounds=None``
+        keeps each tenant's own default (Workload.rounds, else one full
+        decode window for decode tenants, else 16)."""
+        from ..deploy import compile_deployment
+
+        return compile_deployment(None, self.strategy(point), pus=self.pus,
+                                  rounds=rounds)
 
     def simulate(self, point: MultiTenantPoint, *, rounds: Optional[int] = None):
-        """Deploy + execute (raises, as ``deploy``)."""
-        raise NotImplementedError(_DEPLOY_ITEM)
+        from ..deploy import System
+
+        dep = self.deploy(point, rounds=rounds)
+        return System(pus=self.pus).load(dep).run()
 
 
 def _best_case_fps(
@@ -569,13 +583,16 @@ def explore_multi(graphs, *, n_pu1x: int = 5, n_pu2x: int = 5,
     search space, so the bound stays exactly frontier-preserving and the
     result equals the from-scratch exploration.
 
-    ``validate=N`` (deploy + simulate N joint placements and cross-check
-    each tenant's rate) raises ``NotImplementedError`` before any work:
-    deploying needs the port's copy of deploy/ and verify/."""
+    ``validate=N`` deploys + simulates up to N joint placements (the
+    max-min-fair ``balanced`` point first, then the frontier by normalized
+    rate product) and cross-checks each tenant's simulated rate against its
+    own analytic model in ``MultiDSEResult.validation``. When any tenant
+    carries its own round semantics (explicit ``Workload.rounds`` or a
+    decode window), validation keeps the per-member defaults instead of
+    forcing ``validate_rounds``, so decode tenants are cross-checked over
+    their full advancing-length cycle."""
     from ..deploy import Workload
 
-    if validate > 0:
-        raise NotImplementedError(_DEPLOY_ITEM)
     engine = _normalize_engine(engine)
     workloads = tuple(Workload.of(g) for g in graphs)
     if len(workloads) < 2:
@@ -784,6 +801,35 @@ def explore_multi(graphs, *, n_pu1x: int = 5, n_pu2x: int = 5,
                          frontier=frontier, pus=pus,
                          n_pu1x=n_pu1x, n_pu2x=n_pu2x,
                          fingerprints=tuple(fps_order))
+    if validate > 0:
+        # tenants with their own round semantics (explicit Workload.rounds
+        # or a decode window) validate on per-member defaults, so decode
+        # rates are measured over the full advancing-length cycle.
+        has_own_rounds = any(
+            w.rounds is not None or w.graph.decode_steps for w in workloads)
+        val_rounds = None if has_own_rounds else validate_rounds
+        norm = [res.best_solo_fps(i) for i in range(res.n_tenants)]
+        candidates = [res.balanced]
+        ranked = sorted(
+            frontier,
+            key=lambda p: -sum(
+                (f / n if n else 0.0) for f, n in zip(p.fps, norm)),
+        )
+        seen = {candidates[0].configs}
+        for p in ranked:
+            if p.configs not in seen:
+                candidates.append(p)
+                seen.add(p.configs)
+        for cand in candidates[:validate]:
+            sim = res.simulate(cand, rounds=val_rounds)
+            res.validation.append(
+                MultiTenantValidationRecord(
+                    configs=cand.configs,
+                    analytic_fps=cand.fps,
+                    simulated_fps=tuple(
+                        m.throughput_fps(warmup=2) for m in sim.members),
+                )
+            )
     return res
 
 
@@ -815,11 +861,12 @@ def explore(g, *, n_pu1x: int = 5, n_pu2x: int = 5,
     equivalence suite of the JAX package; the port's results equal the JAX
     package's per engine).
 
-    ``validate=N`` (deploy + simulate N schedules and cross-check the
-    analytic rates) raises ``NotImplementedError`` before any work:
-    deploying needs the port's copy of deploy/ and verify/."""
-    if validate > 0:
-        raise NotImplementedError(_DEPLOY_ITEM)
+    ``validate=N`` deploys + simulates up to N schedules (the design points
+    DP-A/C/B first, then the throughput-ordered multi-batch frontier) and
+    records analytic-vs-simulated throughput in ``DSEResult.validation``;
+    decode workloads validate over one full decode window (not
+    ``validate_rounds``) so the cross-check covers the whole
+    advancing-length cycle."""
     engine = _normalize_engine(engine)
     workload = None
     if not isinstance(g, Graph):
@@ -852,4 +899,30 @@ def explore(g, *, n_pu1x: int = 5, n_pu2x: int = 5,
     res = DSEResult(single=single, multi=multi, single_frontier=sf,
                     multi_frontier=mf, graph=g, pus=pus, workload=workload,
                     n_pu1x=n_pu1x, n_pu2x=n_pu2x)
+    if validate > 0:
+        # decode workloads (or explicit Workload.rounds) validate over their
+        # own full window; everything else uses the quick validate_rounds.
+        has_own_rounds = (workload is not None and workload.rounds is not None
+                          ) or bool(g.decode_steps)
+        val_rounds = None if has_own_rounds else validate_rounds
+        candidates: list = []
+        for dp in ("dp_a", "dp_c", "dp_b"):
+            try:
+                candidates.append(getattr(res, dp))
+            except LookupError:
+                pass
+        seen = {c.configs for c in candidates}
+        for s in sorted(mf, key=lambda s: -s.throughput):
+            if s.configs not in seen:
+                candidates.append(s)
+                seen.add(s.configs)
+        for cand in candidates[:validate]:
+            sim = res.simulate(cand, rounds=val_rounds)
+            res.validation.append(
+                ValidationRecord(
+                    configs=cand.configs,
+                    analytic_fps=cand.throughput,
+                    simulated_fps=sim.aggregate_fps(warmup=2),
+                )
+            )
     return res

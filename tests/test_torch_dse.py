@@ -3,8 +3,9 @@
 (port against JAX on the same engine, never one engine against another);
 the float64 torch scoring backend on the CPU against the port's numpy
 backend; the H100-pool deployment DSE with the JAX package's v5e constants
-injected against ``tpu_deploy``; and what the port refuses (deploying, the
-``jax`` backend, a missing card). Small graphs only."""
+injected against ``tpu_deploy``; deploying, simulating and validating design
+points against the JAX package's; and what the port refuses (the ``jax``
+backend, a missing card). Small graphs only."""
 import dataclasses
 import inspect
 import warnings
@@ -15,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")  # the machine with the card has no JAX
 
-from repro import compiler as jc, dse as jdse  # noqa: E402
+from repro import compiler as jc, deploy as jd, dse as jdse  # noqa: E402
 from repro.configs import get_config as jget  # noqa: E402
 from repro.dse import tpu_deploy  # noqa: E402
 from repro.runtime import pipeline as jpipeline  # noqa: E402
@@ -190,25 +191,46 @@ def test_gpu_dse_rows():
     assert all(",,deployments=" in r and "hybrid_gain_vs_pipeline=" in r for r in rows)
 
 
-# -- what the port refuses ----------------------------------------------------
+# -- deploying a design point ------------------------------------------------
 def test_deploy_simulate_and_validate_raise_before_any_work():
-    g = GRAPHS["tiny_cnn"](tc.zoo)
-    calls = tc.STATS.snapshot()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tdse.explore(g, validate=1)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tdse.explore_multi([g, GRAPHS["qwen3_enc"](tc.zoo)], validate=2)
-    assert tc.STATS.snapshot() == calls
-    res = tdse.explore(g)
-    multi = tdse.explore_multi([g, GRAPHS["qwen3_enc"](tc.zoo)])
-    calls = tc.STATS.snapshot()
-    for call in (lambda: res.deploy(res.dp_a), lambda: res.simulate(res.dp_c),
-                 lambda: multi.deploy(multi.balanced),
-                 lambda: multi.simulate(multi.balanced)):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            call()
-    assert tc.STATS.snapshot() == calls  # no codegen ran
-    assert multi.strategy(multi.balanced).configs == multi.balanced.configs
+    """``res.deploy`` / ``simulate``, ``multi.deploy`` / ``simulate`` and
+    ``validate=N`` run and equal the JAX package's (programs word for word,
+    simulated rates and validation records); codegen runs only at deploy
+    (``explore`` leaves ``codegen_calls`` and ``memory_plan_calls`` as they
+    were, a deploy adds to them, both packages' counters move alike); and
+    what deploy refuses, a point that does not fit the machine or a result
+    without a graph, it refuses before any codegen."""
+    def run(c, d, z, strategy):
+        c.clear_analysis_cache()
+        c.STATS.reset()
+        g, enc = GRAPHS["tiny_cnn"](z), GRAPHS["qwen3_enc"](z)
+        res, multi = d.explore(g), d.explore_multi([g, enc])
+        snaps = [c.STATS.snapshot()]
+        deps = [res.deploy(res.dp_a, rounds=4), res.deploy(res.dp_c, rounds=4),
+                multi.deploy(multi.balanced, rounds=4)]
+        snaps.append(c.STATS.snapshot())
+        sims = [res.simulate(res.dp_b, rounds=4), multi.simulate(multi.balanced, rounds=4)]
+        snaps.append(c.STATS.snapshot())
+        for bad in (lambda: res.deploy(strategy.multi([(5, 5), (5, 5)])),
+                    lambda: dataclasses.replace(res, graph=None).deploy(res.dp_a)):
+            with pytest.raises(ValueError):
+                bad()
+        snaps.append(c.STATS.snapshot())
+        val = (d.explore(g, validate=2, validate_rounds=4).validation,
+               d.explore_multi([g, enc], validate=2).validation)
+        return (snaps, [[(p.pid, p.encode()) for p in dep.programs()] for dep in deps],
+                [(sim.aggregate_fps(warmup=2), sim.fps_by_workload(warmup=2), sim.end_cycles,
+                  sim.deadlocked) for sim in sims],
+                [_t(v) for v in val])
+
+    got, want = run(tc, tdse, tc.zoo, Strategy), run(jc, jdse, jc.zoo, jd.Strategy)
+    assert got == want
+    snaps = got[0]
+    assert snaps[0]["codegen_calls"] == snaps[0]["memory_plan_calls"] == 0
+    assert snaps[1]["codegen_calls"] > 0 and snaps[2]["codegen_calls"] > snaps[1]["codegen_calls"]
+    assert snaps[3] == snaps[2]  # the refusals ran no phase
+    assert [len(v) for v in got[3]] == [2, 2]
+    assert all(not sim[3] for sim in got[2])
 
 
 def test_deprecated_forms_warn_at_the_caller_and_do_not_error():

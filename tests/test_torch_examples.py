@@ -2,7 +2,10 @@
 subprocess on the CPU at reduced size: ``serve_llm`` drains its requests;
 ``train_lm`` resumed from a checkpoint ends with the uninterrupted run's
 params, and trains the recurrent configs (rwkv6-7b, zamba2-7b) too;
-``pipeline_parallel`` runs its four steps, the ranks over gloo."""
+``pipeline_parallel`` runs its four steps, the ranks over gloo; the DSE and
+deployment twins (``quickstart``, ``resnet50_dse``, ``transformer_dse``,
+``multi_tenant``, ``decode_serving``) print the JAX examples' lines on the
+same arguments, each pair run side by side."""
 import math
 import os
 import re
@@ -15,17 +18,38 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC), *filter(None, [os.environ.get("PYTHONPATH")])])}
 
 
 def _run(module, *args):
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [str(SRC), *filter(None, [os.environ.get("PYTHONPATH")])])}
     out = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{module}",
-                          "--device", "cpu", *args], capture_output=True, text=True, env=env,
+                          "--device", "cpu", *args], capture_output=True, text=True, env=_env(),
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     return out.stdout
+
+
+def _run_twins(module, *args):
+    """The port's twin and the JAX package's example on the same arguments,
+    side by side; returns the twin's output after checking the two agree
+    line for line. The twins touch no tensor and take no ``--device``."""
+    cmds = {"torch": [sys.executable, "-m", f"repro_torch.examples.{module}", *args],
+            "jax": [sys.executable, str(ROOT / "examples" / f"{module}.py"), *args]}
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=_env()) for k, cmd in cmds.items()}
+    outs = {}
+    for k, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{k}: {err[-2000:]}"
+        outs[k] = out
+    assert outs["torch"].splitlines() == outs["jax"].splitlines()
+    return outs["torch"]
 
 
 def test_serve_llm_drains_requests():
@@ -78,3 +102,34 @@ def test_pipeline_parallel_runs_its_four_steps():
                                          r"(\d+)\)", out).groups())
     assert sent == simulated == 30
     assert "stages= 8 dp=  1" in out and "v5e" not in out
+
+
+def test_quickstart_twin_prints_the_jax_lines():
+    out = _run_twins("quickstart", "--pu1x", "2", "--pu2x", "3")
+    assert "deadlock=False" in out and "first stage LD program:" in out
+
+
+@pytest.mark.parametrize("sim", [False, True], ids=["no_sim", "sim"])
+def test_resnet50_dse_twin_prints_the_jax_lines(sim):
+    out = _run_twins("resnet50_dse", *([] if sim else ["--no-sim"]))
+    assert "step 1: 35 single-batch configurations" in out
+    assert ("runtime strategy switching" in out) == sim
+    if sim:
+        errs = [float(e) for e in re.findall(r"\( *(\S+)% off", out)]
+        assert len(errs) == 2 and max(errs) < 10.0
+        assert out.count("deadlock=False") == 2
+
+
+def test_transformer_dse_twin_prints_the_jax_lines():
+    out = _run_twins("transformer_dse", "--model", "qwen3", "--depth", "2")
+    assert out.count("deadlock=False") == 2
+
+
+def test_multi_tenant_twin_prints_the_jax_lines():
+    out = _run_twins("multi_tenant", "--small", "--rounds", "4")
+    assert "switched to two-tenant split" in out and out.count("deadlock=False") == 2
+
+
+def test_decode_serving_twin_prints_the_jax_lines():
+    out = _run_twins("decode_serving", "--small")
+    assert "switched back to prefill" in out and "deadlock=True" not in out
