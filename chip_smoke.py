@@ -68,21 +68,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    again (params bit-equal). Each kernel runs forward once a layer of its
    kind a step (and again with remat); each backward is a plain version's
    gradient, recomputed (``FlashAttention``, ``WKV6``, ``SSDScan``);
-7. timing: each kernel, its plain version and the PyTorch library call (where
+7. sharded: qwen3-0.6b at full width and depth under its ``ShardingPolicy``
+   on a (1, 1) ("data", "model") mesh of one NCCL rank (params and caches
+   DTensors, the flash kernel reached through ``local_map`` on the local
+   shards): a 4 x 1024 prefill, 32 decode steps and one train step through
+   the entry points with ``policy=``, against the unsharded port on the same
+   card (logits at 1e-5 relative and the same greedy tokens, loss and grad
+   norm as in training), the one-rank overhead of a prefill and a decode
+   step, then the dry run of qwen3-0.6b x decode_32k and dbrx-132b x
+   train_4k on a fake 16 x 16 mesh on the host (per-device bytes, FLOPs,
+   collective bytes, roofline terms on H100 constants);
+8. timing: each kernel, its plain version and the PyTorch library call (where
    one exists) at its main-path shapes (flash attention at five, wkv6 at the
    prefill and at the decode step), beside the card's bound, and the
    backward of wkv6 and of the SSD scan at the training shape; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
    the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch;
-8. dse: the paper's three-step DSE in the port (no kernel): ResNet-50 on the
+9. dse: the paper's three-step DSE in the port (no kernel): ResNet-50 on the
    U50's 5 + 5 PUs (the Step 1/2/3 counts, DP-A/B/C); the float64 torch
    scorer on the card against the numpy scorer at 35, 1088 and 4224
    configurations (every field at rtol 1e-9 / atol 1e-12; both timed warm,
    their phases, the torch scoring's device time); the H100-pool deployment
    DSE at 8 cards (``gpu_dse.<arch>`` rows) and its prediction for the h2o
    pipeline beside what four cards measured;
-9. deploy: the paper's main flow in the port (host code, no kernel):
+10. deploy: the paper's main flow in the port (host code, no kernel):
    ResNet-50 @256's DP-A, DP-C and DP-B deployed, verified and run on one
    fixed simulated U50, switching from one to the next (each within 10 % of
    its prediction, no deadlock, each switch equal to a fresh load);
@@ -274,6 +284,14 @@ TRAIN_PATHS = [(TRAIN_ARCH, None), (RWKV_ARCH, 6), (ZAMBA_ARCH, 12)]
 # the same step with the recurrence in float64, and the kernel's 4.7e-5
 # (PERF.md section 6), so a recurrence's check also reads that noise
 TRAIN_TOL, TRAIN_PLAIN_GRAD_TOL = 1e-5, 1e-4
+# the sharded phase: qwen3-0.6b at full width and depth under its policy on
+# a (1, 1) ("data", "model") mesh of one NCCL rank, against the unsharded
+# port on the same card: logits at SHARDED_TOL (max |diff| over max |logit|),
+# loss at TRAIN_TOL and grad norm at TRAIN_PLAIN_GRAD_TOL relative; then the
+# dry run's cells on a fake 256-rank mesh on this machine's host
+SHARDED_ARCH = ARCH
+SHARDED_TOL = 1e-5
+DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k"), ("dbrx-132b", "train_4k"))
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -2013,6 +2031,165 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def drive_sharded(kernel_mods, report) -> dict:
+    """SHARDED_ARCH at full width and depth through the entry points with
+    ``policy=``: its ``ShardingPolicy`` on a (1, 1) ("data", "model") mesh of
+    one NCCL rank (NCCL refuses two ranks on one card), params and caches
+    DTensors, each kernel reached through ``local_map`` on the local shards.
+    a. the unsharded port first, on the same weights and tokens: a prefill
+       of PREFILL_BATCH x PREFILL_LEN, CONSISTENCY_LEN decode steps of the
+       batch's first tokens, one train step (AdamW, remat) of TRAIN_BATCH x
+       TRAIN_LEN tokens of the token stream;
+    b. the same three sharded, with every launch count set to 0 just before
+       and read just after: flash attention once a layer in the prefill,
+       twice a layer in the step (remat), never in decode (plain einsums);
+       the other kernels never. Logits at SHARDED_TOL of (a)'s (and whether
+       bit-equal), the same greedy tokens, loss at TRAIN_TOL and grad norm
+       at TRAIN_PLAIN_GRAD_TOL relative;
+    c. one-rank overhead: (a)'s and (b)'s prefill and decode step timed warm
+       with CUDA events, one after the other;
+    d. the dry run (``repro_torch.launch.dryrun``) of DRYRUN_CELLS on a fake
+       16 x 16 mesh on this host: per-device bytes, FLOPs, collective bytes
+       and the roofline terms on H100 constants.
+    Returns the counts of (b)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch._device import batch_on_device
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import train
+    from repro_torch.runtime.data import DataConfig, TokenStream
+    from repro_torch.runtime.optimizer import AdamWConfig, adamw_init
+    from repro_torch.runtime.serve import make_prefill, make_serve_step
+    from repro_torch.runtime.sharding import gather, make_policy, shard_cache, shard_params
+
+    t_phase = time.time()
+    cfg = get_config(SHARDED_ARCH)
+    L, b, s, n = cfg.num_layers, PREFILL_BATCH, PREFILL_LEN, CONSISTENCY_LEN
+    params = tf.init_params(cfg, seed=SEED, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 31)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)), device="cuda")
+    batch = batch_on_device(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH,
+        seed=SEED)).next(), torch.device("cuda"))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
+
+    def serve(pre, step, p, cache):
+        logits = pre(p, {"tokens": tokens})
+        dec = []
+        for t in range(n):
+            lg, cache = step(p, cache, {"tokens": tokens[:, t:t + 1]}, t)
+            dec.append(lg[:, 0])
+        return logits, torch.stack(dec, 1)
+
+    # a. unsharded
+    pre0, step0 = make_prefill(cfg), make_serve_step(cfg)
+    want, want_dec = serve(pre0, step0, params, tf.init_cache(cfg, b, n, torch.float32))
+    _, _, met0 = train.make_train_step(cfg, opt_cfg)(params, adamw_init(opt_cfg, params), batch)
+    met0 = {k: float(v) for k, v in met0.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. sharded, on one NCCL rank
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        policy = make_policy(cfg, mesh)
+        sparams = shard_params(params, policy)
+        pre1, step1 = make_prefill(cfg, policy=policy), make_serve_step(cfg, policy=policy)
+        print(f"{SHARDED_ARCH} sharded: {L} layers at full width under its policy "
+              f"(attn_mode {policy.attn_mode}, fsdp {policy.fsdp}, batch axes "
+              f"{policy.batch_axes}) on {mesh}, params as DTensors; the unsharded port on "
+              f"the same weights and tokens first")
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernel_mods.values():
+            mod.launches = 0
+        got, got_dec = serve(pre1, step1, sparams,
+                             shard_cache(tf.init_cache(cfg, b, n, torch.float32), policy))
+        after_serving = {name: mod.launches for name, mod in kernel_mods.items()}
+        _, _, met1 = train.make_train_step(cfg, opt_cfg, policy=policy)(
+            sparams, adamw_init(opt_cfg, sparams), batch)
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in kernel_mods.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        met1 = {k: float(gather({"x": v})["x"]) for k, v in met1.items()}
+        if type(got).__name__ != "DTensor" or type(got_dec).__name__ != "DTensor":
+            raise AssertionError(f"sharded logits are {type(got).__name__}, not DTensors")
+        got, got_dec = got.full_tensor(), got_dec.full_tensor()
+        want_counts = {name: 0 for name in kernel_mods}
+        want_counts["flash_attention"] = 3 * L  # prefill once a layer, the step twice (remat)
+        if counts != want_counts or after_serving["flash_attention"] != L:
+            raise AssertionError(f"sharded launches {counts} (after serving "
+                                 f"{after_serving}), want {want_counts} ({L} in serving)")
+        errs = {}
+        for what, a, w in (("prefill", got, want), ("decode", got_dec, want_dec)):
+            if not bool(torch.isfinite(a).all()) or a.shape != w.shape:
+                raise AssertionError(f"sharded {what} logits {tuple(a.shape)} not finite or "
+                                     f"not {tuple(w.shape)}")
+            errs[what] = ((a - w).abs().max() / w.abs().max()).item()
+            if errs[what] > SHARDED_TOL:
+                raise AssertionError(f"sharded {what} logits {errs[what]:.3e} (relative) from "
+                                     f"the unsharded port's, above {SHARDED_TOL}")
+            if not torch.equal(a.argmax(-1), w.argmax(-1)):
+                raise AssertionError(f"sharded {what} greedy tokens differ from the unsharded")
+        for key, tol in (("nll", TRAIN_TOL), ("z_loss", TRAIN_TOL),
+                         ("grad_norm", TRAIN_PLAIN_GRAD_TOL)):
+            rel = abs(met1[key] - met0[key]) / abs(met0[key])
+            if not rel <= tol:
+                raise AssertionError(f"sharded step {key} {met1[key]!r} against {met0[key]!r} "
+                                     f"unsharded: {rel:.3e} relative, above {tol}")
+        report(f"{SHARDED_ARCH} sharded vs unsharded on one card: prefill {b} x {s} logits "
+               f"{errs['prefill']:.3e} relative (bit-equal: {torch.equal(got, want)}), "
+               f"{n} decode steps {errs['decode']:.3e} (bit-equal: "
+               f"{torch.equal(got_dec, want_dec)}), greedy tokens equal; train step nll "
+               f"{met1['nll']:.7f} vs {met0['nll']:.7f}, grad norm {met1['grad_norm']:.7f} "
+               f"vs {met0['grad_norm']:.7f}; launches {json.dumps(counts)}; allocator peak "
+               f"{peak:.2f} GB")
+
+        # c. one-rank overhead
+        c0 = tf.init_cache(cfg, b, n, torch.float32)
+        c1 = shard_cache(tf.init_cache(cfg, b, n, torch.float32), policy)
+        one = {"tokens": tokens[:, :1]}
+        times = {"prefill": (cuda_ms(lambda: pre0(params, {"tokens": tokens}), 3),
+                             cuda_ms(lambda: pre1(sparams, {"tokens": tokens}), 3)),
+                 "decode step": (cuda_ms(lambda: step0(params, c0, one, 0), 10),
+                                 cuda_ms(lambda: step1(sparams, c1, one, 0), 10))}
+        for what, (t0, t1) in times.items():
+            report(f"{SHARDED_ARCH} {what} unsharded {t0:.4f} ms, sharded on one rank "
+                   f"{t1:.4f} ms ({t1 / t0:.3f}x; DTensor dispatch and local_map on the host)")
+    finally:
+        dist.destroy_process_group()
+    del params, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. the dry run
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.time()
+        cell = dryrun.run_cell(arch, shape)
+        if cell.status != "ok":
+            raise AssertionError(f"dry run {arch} x {shape}: {cell.status} {cell.reason}")
+        keys = ("arg_bytes", "output_bytes", "flops", "hbm_bytes", "collective_wire_bytes",
+                "collective_by_type", "n_collectives", "t_compute", "t_memory", "t_collective",
+                "bottleneck", "model_flops_per_chip", "useful_ratio", "kernels")
+        report(f"dryrun {arch} x {shape} on {cell.mesh}, per device: "
+               f"{json.dumps({k: getattr(cell, k) for k in keys})} ({time.time() - t0:.1f} s on "
+               f"the host; {cell.link})")
+    print(f"sharded phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
 def dse_pool(n1: int, n2: int) -> list:
     """``n1`` PU1x on SLR 0 and ``n2`` PU2x on SLR 1, built as
     ``make_u50_system`` builds the U50's 5 + 5."""
@@ -2401,6 +2578,9 @@ def main() -> int:
         launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
         gc.collect()
         torch.cuda.empty_cache()
+    label = f"{SHARDED_ARCH} sharded"
+    by_path[label] = drive_sharded(kernel_mods, report)
+    launches = {name: launches[name] + by_path[label][name] for name in kernel_mods}
 
     # ----------------------------------------------------------- timing --
     b, s = PREFILL_BATCH, PREFILL_LEN

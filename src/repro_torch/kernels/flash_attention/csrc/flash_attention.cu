@@ -470,7 +470,40 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b, int
   }
 }
 
+template <typename T, int HD>
+int plan_of(int* out) {
+  using L = Layout<T, HD>;
+  out[0] = L::THREADS;
+  out[1] = L::SMEM;
+  out[2] = L::BQ;
+  out[3] = L::BK;
+  return 0;
+}
+
+template <typename T>
+int plan_hd(int hd, int* out) {
+  switch (hd) {
+    case 16: return plan_of<T, 16>(out);
+    case 32: return plan_of<T, 32>(out);
+    case 64: return plan_of<T, 64>(out);
+    case 112: return plan_of<T, 112>(out);
+    case 120: return plan_of<T, 120>(out);
+    case 128: return plan_of<T, 128>(out);
+    case 256: return plan_of<T, 256>(out);
+    default: return -1;
+  }
+}
+
 }  // namespace
+
+// The launch flash_attention_fwd makes at head size hd and dtype (0 = fp32,
+// 1 = bf16): out[0] threads a block, out[1] dynamic shared memory bytes,
+// out[2] q rows a block, out[3] kv rows a tile. Touches no device.
+extern "C" int flash_attention_plan(int hd, int dtype, int* out) {
+  if (dtype == 0) return plan_hd<float>(hd, out);
+  if (dtype == 1) return plan_hd<__nv_bfloat16>(hd, out);
+  return -2;
+}
 
 // q (b, s, H, hd), k and v (b, t, G, hd), o (b, s, H, hd), all contiguous,
 // 16-byte aligned and on the current device; stream belongs to that device.

@@ -13,9 +13,11 @@ import math
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import _build
+from .._sharded import refuse_wrapped
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 112, 120, 128, 256)  # 112: zamba2-7b, 120: h2o-danube-3-4b
@@ -35,6 +37,17 @@ def _fwd():
     return fn
 
 
+def plan(hd: int, dtype: torch.dtype) -> dict:
+    """The launch ``flash_attention_cuda`` makes at head size ``hd``, as the
+    built source reports it (``flash_attention_plan``): threads a block,
+    dynamic shared memory, q rows a block, kv rows a tile."""
+    fn = _build.load("flash_attention", SOURCE).flash_attention_plan
+    out = (ctypes.c_int * 4)()
+    if fn(hd, _DTYPES[dtype], out) != 0:
+        raise ValueError(f"flash_attention: no launch at head size {hd}, {dtype}")
+    return dict(zip(("threads", "smem_bytes", "bq", "bk"), out))
+
+
 def flash_attention_cuda(
     q: torch.Tensor,  # (b, s, H, hd)
     k: torch.Tensor,  # (b, t, G, hd)
@@ -45,6 +58,7 @@ def flash_attention_cuda(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     global launches
+    refuse_wrapped("flash_attention_cuda", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (b,s,H,hd) and k, v (b,t,G,hd); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -77,3 +91,24 @@ def flash_attention_cuda(
         raise RuntimeError(f"flash_attention_fwd launch failed: error {err}")
     launches += 1
     return out
+
+
+def kept_pairs(s: int, t: int, causal: bool = True, window: Optional[int] = None) -> int:
+    """The (row, column) pairs of an s x t score matrix that the mask keeps
+    (col < t, col <= row if causal, col > row - window if a window is
+    given), counted row by row without the matrix."""
+    rows = np.arange(s, dtype=np.int64)  # numpy: the count never meets a fake mode
+    hi = np.minimum(rows + 1, t) if causal else np.full_like(rows, t)
+    lo = np.maximum(rows - window + 1, 0) if window is not None else np.zeros_like(rows)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def work(q_shape, k_shape, causal: bool, window: Optional[int], itemsize: int):
+    """(operations, bytes) of one call, as the kernel's bound counts them:
+    two products of hd a kept (row, column) pair and head, q, k, v read and
+    the output written once."""
+    b, s, H, hd = q_shape
+    t, G = k_shape[1], k_shape[2]
+    flops = 4 * hd * b * H * kept_pairs(s, t, causal, window)
+    n_bytes = itemsize * (2 * b * s * H * hd + 2 * b * t * G * hd)
+    return flops, n_bytes

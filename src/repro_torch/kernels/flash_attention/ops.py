@@ -6,6 +6,12 @@ autograd needs a gradient of the result, the launch goes through
 attention with the plain version and differentiates that (no JAX kernel has
 a backward kernel to port). A CPU tensor takes ``plain_attention``, the JAX
 package's CPU dispatch. There is no switch and no fallback.
+
+A DTensor (a model sharded under a ``ShardingPolicy``) runs through
+``local_map``: each rank launches the kernel on its own heads (or, on the
+CPU, the plain version on them), k/v narrowed to the groups those heads
+read where the policy leaves k/v whole. A shape-only tensor (a dry run)
+computes nothing and records the kernel's work (``kernels/_sharded.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Optional
 import torch
 
 from . import kernel
+from .. import _sharded
 from .._recompute import plain_gradients
 from .ref import banded_attention, chunked_attention, mha_reference
 
@@ -59,8 +66,28 @@ class FlashAttention(torch.autograd.Function):
                                  grad_out, **ctx.opts), None, None, None)
 
 
+def _sharded_attention(q, k, v, causal, window, scale):
+    """Attention of a sharded q, k, v: the kernel on each rank's heads."""
+    mesh = q.device_mesh
+    q_pl, heads_on = _sharded.head_split(q, 2, (0,), "flash_attention q")
+    kv_pl, pick = _sharded.group_placements(q_pl, heads_on, mesh, q.shape[2], k.shape[2], 2)
+
+    def local(ql, kl, vl):
+        if pick is not None:
+            kl, vl = pick(kl), pick(vl)
+        return flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                               causal=causal, window=window, scale=scale)
+
+    return _sharded.local_call(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl, mesh)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None):
+    if _sharded.is_dtensor(q):
+        return _sharded_attention(q, k, v, causal, window, scale)
+    if _sharded.is_shape_only(q):
+        flops, n_bytes = kernel.work(q.shape, k.shape, causal, window, q.element_size())
+        return _sharded.shape_only("flash_attention", flops, n_bytes, (q,), q, k, v)
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window, scale)

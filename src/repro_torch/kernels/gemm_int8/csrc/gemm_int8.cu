@@ -735,6 +735,25 @@ extern "C" int gemm_int8_fwd(const int8_t* a, const int8_t* w, const int32_t* bi
   return launch<false, false>(a, w, bias, residual, out, M, N, K, shift, relu, stream);
 }
 
+// The column-major launch at block_n (64 or 128): out[0] threads a block,
+// out[1] warp rows, out[2] ring stages, out[3] dynamic shared memory bytes
+// with the residual staged in shared memory, out[4] without it. Touches no
+// device.
+extern "C" int gemm_int8_kmajor_plan(int block_n, int* out) {
+  auto fill = [&](auto tile, int wm) {
+    using T = decltype(tile);
+    out[0] = T::THREADS;
+    out[1] = wm;
+    out[2] = kmajor::STAGES;
+    out[3] = T::SMEM;
+    out[4] = T::RES;
+    return 0;
+  };
+  if (block_n == 128) return fill(kmajor::Tile<128, kmajor::WM_N128>{}, kmajor::WM_N128);
+  if (block_n == 64) return fill(kmajor::Tile<64, kmajor::WM_N64>{}, kmajor::WM_N64);
+  return -1;
+}
+
 // w column-major: wt points at w^T, (N, K) row-major. block_n is 64 or 128;
 // 1 <= splits <= 8 slices K into whole 64-byte tiles, at most one a tile.
 extern "C" int gemm_int8_kmajor_fwd(const int8_t* a, const int8_t* wt, const int32_t* bias,

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .._sharded import refuse_wrapped
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm_int8.cu"
 MAX_SHIFT = 31  # the ISA's 5-bit Compute.SCALE field (repro/core/isa.py:484)
@@ -107,6 +108,18 @@ def _kmajor_fwd():
     return fn
 
 
+def kmajor_plan(bn: int) -> dict:
+    """The column-major launch at block width ``bn`` (``block_n``), as the
+    built source reports it (``gemm_int8_kmajor_plan``): threads a block,
+    warp rows, ring stages, dynamic shared memory with and without the
+    residual staged in it."""
+    fn = _build.load("gemm_int8", SOURCE).gemm_int8_kmajor_plan
+    out = (ctypes.c_int * 5)()
+    if fn(bn, out) != 0:
+        raise ValueError(f"gemm_int8: no column-major launch at block_n {bn}")
+    return dict(zip(("threads", "wm", "stages", "smem_bytes", "smem_bytes_no_residual"), out))
+
+
 def gemm_int8_cuda(
     a: torch.Tensor,  # (M, K) int8
     w: torch.Tensor,  # (K, N) int8, row-major (as in JAX) or column-major
@@ -118,6 +131,7 @@ def gemm_int8_cuda(
 ) -> torch.Tensor:
     """Returns the (M, N) int8 output of the fused GEMM."""
     global launches
+    refuse_wrapped("gemm_int8_cuda", a, w, bias, residual)
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"want a (M,K) and w (K,N); got {tuple(a.shape)}, {tuple(w.shape)}")
     (M, K), N = a.shape, w.shape[1]

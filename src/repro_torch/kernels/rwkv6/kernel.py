@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .._sharded import refuse_wrapped
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 # head size P -> (columns a block PC, threads a column R, columns a thread
@@ -103,6 +104,7 @@ def wkv6_cuda(
     is the number of steps a tile stages (``plan``); it does not change the
     result."""
     global launches
+    refuse_wrapped("wkv6_cuda", r, k, v, w, u, state, state_out)
     if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, w)):
         raise ValueError(f"want r, k, v, w of one shape (b,s,H,P); got {tuple(r.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(w.shape)}")
@@ -141,3 +143,10 @@ def wkv6_cuda(
         raise RuntimeError(f"wkv6_fwd launch failed: error {err}")
     launches += 1
     return y, out
+
+
+def work(b: int, s: int, H: int, P: int):
+    """(operations, bytes) of one fp32 call, as the kernel's bound counts
+    them: r.S (2 P^2) and w*S + k v (3 P^2) a step and head; r, k, v, w and u
+    read, y written, the state read and written once."""
+    return 5 * b * s * H * P * P, 4 * (5 * b * s * H * P + H * P + 2 * b * H * P * P)

@@ -10,6 +10,12 @@ differentiates that (no JAX kernel has a backward kernel to port). A CPU
 tensor takes the JAX package's CPU dispatch: the chunked form for ``s > 1``
 and the sequential recurrence for ``s == 1``. There is no switch and no
 fallback.
+
+A DTensor (rwkv6 under the ``ssm_x`` / ``wkv_state`` specs) runs through
+``local_map``: each rank runs the recurrence on its own heads, and a state
+output given in place must already have the state's placements. A
+shape-only tensor (a dry run) computes nothing and records the kernel's
+work (``kernels/_sharded.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Optional
 import torch
 
 from . import kernel
+from .. import _sharded
 from .._recompute import plain_gradients
 from .ref import wkv6_chunked, wkv6_reference
 
@@ -41,6 +48,12 @@ class WKV6(torch.autograd.Function):
 def wkv6(r, k, v, w, u, state, *, state_out: Optional[torch.Tensor] = None):
     """Returns (y, final state); the final state is written into
     ``state_out`` when given, which may be ``state`` itself."""
+    if _sharded.is_dtensor(r):
+        return _sharded_wkv6(r, k, v, w, u, state, state_out)
+    if _sharded.is_shape_only(r):
+        flops, n_bytes = kernel.work(*r.shape)
+        outs = (r, state if state_out is None else state_out)
+        return _sharded.shape_only("wkv6", flops, n_bytes, outs, r, k, v, w, u, state)
     if r.is_cuda:
         if torch.is_grad_enabled() and any(
                 x.requires_grad for x in (r, k, v, w, u, state)):
@@ -56,3 +69,26 @@ def wkv6(r, k, v, w, u, state, *, state_out: Optional[torch.Tensor] = None):
     if state_out is None:
         return y, final
     return y, state_out.copy_(final)
+
+
+def _sharded_wkv6(r, k, v, w, u, state, state_out):
+    """The recurrence of sharded inputs: the kernel on each rank's heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = r.device_mesh
+    x_pl, heads_on = _sharded.head_split(r, 2, (0,), "wkv6 r")
+    u_pl = tuple(Shard(0) if i == heads_on else Replicate() for i in range(mesh.ndim))
+    s_pl = tuple(Shard(1) if i == heads_on else p for i, p in enumerate(x_pl))
+    args, in_pl = [r, k, v, w, u, state], [x_pl] * 4 + [u_pl, s_pl]
+    if state_out is not None:
+        if tuple(state_out.placements) != s_pl:
+            raise ValueError(f"wkv6: the in-place state {state_out.placements} is not in the "
+                             f"state's placements {s_pl}")
+        args.append(state_out)
+        in_pl.append(s_pl)
+
+    def local(*xs):
+        xs = [x.contiguous() for x in xs[:6]] + list(xs[6:])
+        return wkv6(*xs[:6], state_out=xs[6] if len(xs) > 6 else None)
+
+    return _sharded.local_call(local, args, in_pl, (x_pl, s_pl), mesh)

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .._sharded import refuse_wrapped
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 # (head size P, state size N) -> (columns a block PC, threads a column R,
@@ -97,6 +98,7 @@ def ssd_scan_cuda(
     is the number of steps a tile stages (``plan``); it does not change the
     result."""
     global launches
+    refuse_wrapped("ssd_scan_cuda", xh, dt, A, B, C)
     if xh.dim() != 4 or B.dim() != 3:
         raise ValueError(f"want xh (b,s,H,P) and B, C (b,s,N); got {tuple(xh.shape)}, "
                          f"{tuple(B.shape)}")
@@ -133,3 +135,11 @@ def ssd_scan_cuda(
         raise RuntimeError(f"ssd_scan_fwd launch failed: error {err}")
     launches += 1
     return y, h_final
+
+
+def work(b: int, s: int, H: int, P: int, N: int):
+    """(operations, bytes) of one fp32 call, as the kernel's bound counts
+    them: decay*h + (dt x) B and C.h, 4 N P a step and head; xh, dt, A, B
+    and C read, y and the final state written once."""
+    n_in = b * s * H * P + b * s * H + H + 2 * b * s * N
+    return 4 * b * s * H * P * N, 4 * (n_in + b * s * H * P + b * H * N * P)

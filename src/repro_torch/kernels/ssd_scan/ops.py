@@ -8,12 +8,18 @@ the kernel runs) and differentiates that (no JAX kernel has a backward
 kernel to port). A CPU tensor takes ``ssd_chunked`` (chunk 128), the path
 the JAX model's forward takes on the CPU (``repro.models.ssm.mamba_forward``).
 There is no switch and no fallback.
+
+A DTensor (zamba2 under the ``ssm_x`` spec) runs through ``local_map``:
+each rank runs the scan on its own heads, with B and C whole. A shape-only
+tensor (a dry run) computes nothing and records the kernel's work
+(``kernels/_sharded.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernel
+from .. import _sharded
 from .._recompute import plain_gradients
 from .ref import ssd_chunked
 
@@ -36,6 +42,11 @@ class SSDScan(torch.autograd.Function):
 def ssd_scan(xh, dt, A, B, C):
     """xh: (b, s, H, P); dt: (b, s, H); A: (H,); B, C: (b, s, N). Returns y
     only, as the JAX package's ``ssd_scan`` does."""
+    if _sharded.is_dtensor(xh):
+        return _sharded_ssd_scan(xh, dt, A, B, C)
+    if _sharded.is_shape_only(xh):
+        flops, n_bytes = kernel.work(*xh.shape, B.shape[-1])
+        return _sharded.shape_only("ssd_scan", flops, n_bytes, (xh,), xh, dt, A, B, C)
     if xh.is_cuda:
         if torch.is_grad_enabled() and any(x.requires_grad for x in (xh, dt, A, B, C)):
             return SSDScan.apply(xh, dt, A, B, C)
@@ -43,3 +54,19 @@ def ssd_scan(xh, dt, A, B, C):
     if xh.device.type != "cpu":
         raise ValueError(f"no ssd_scan path for device {xh.device}")
     return ssd_chunked(xh, dt, A, B, C)
+
+
+def _sharded_ssd_scan(xh, dt, A, B, C):
+    """The scan of sharded inputs: the kernel on each rank's heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = xh.device_mesh
+    x_pl, heads_on = _sharded.head_split(xh, 2, (0,), "ssd_scan xh")
+    a_pl = tuple(Shard(0) if i == heads_on else Replicate() for i in range(mesh.ndim))
+    bc_pl = tuple(Replicate() if i == heads_on else p for i, p in enumerate(x_pl))
+
+    def local(*xs):
+        return ssd_scan(*(x.contiguous() for x in xs))
+
+    return _sharded.local_call(local, (xh, dt, A, B, C), (x_pl, x_pl, a_pl, bc_pl, bc_pl),
+                               x_pl, mesh)

@@ -7,6 +7,11 @@ is plain tensor code, as in the JAX package.
 
 Unlike the JAX package, ``decode_attention`` writes the new k/v into the
 cache in place (every batch lane at one slot) instead of returning a copy.
+A sharded cache (a DTensor, its sequence split over "model" by the policy)
+is written on the rank that owns the slot, and decode attention over it
+takes the flash-decoding layout: the tiny q is gathered, each rank scores
+its own positions, and only the softmax's row statistics and the output
+are summed across ranks.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as flash
+from ..runtime.pspec import constrain, fit_grad, fit_split, is_sharded, product
 from .layers import apply_rope, normal, rmsnorm
 
 
@@ -39,13 +45,15 @@ def init_attn(gen: torch.Generator, lead: tuple, cfg: ArchConfig, dtype, device)
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhq->bshq") as one matmul on the flattened heads."""
     d, h, q = w.shape
-    return (x @ w.reshape(d, h * q)).view(*x.shape[:-1], h, q)
+    w2 = fit_grad(w.reshape(d, h * q), 1, h)
+    return fit_split(product(x, w2), -1, h).reshape(*x.shape[:-1], h, q)
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshq,hqd->bsd")."""
     h, q, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * q) @ wo.reshape(h * q, d)
+    o2 = fit_grad(o.reshape(*o.shape[:-2], h * q), -1, h)
+    return product(o2, fit_grad(wo.reshape(h * q, d), 0, h))
 
 
 def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -66,8 +74,10 @@ def full_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, *, local: bool,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
+    q = constrain(q, "attn_q")
     w = (window or cfg.window) if local else None
     out = flash.flash_attention(q, k, v, causal=True, window=w)
+    out = constrain(out, "attn_out")
     return _out_proj(out, p["wo"])
 
 
@@ -103,6 +113,11 @@ def decode_attention(
     q, k, v = _project_qkv(p, cfg, x, positions)  # q:(b,1,H,hd) k/v:(b,1,G,hd)
 
     slot = cache_slot(pos, cache_len, local)
+    if is_sharded(ck):
+        _write_owned_slot(ck, slot, k)
+        _write_owned_slot(cv, slot, v)
+        out = _sharded_decode(q, ck, cv, min(pos, cache_len - 1), G)
+        return _out_proj(out, p["wo"])
     ck[:, slot] = k[:, 0]
     cv[:, slot] = v[:, 0]
 
@@ -117,3 +132,55 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bgrut,btgq->bugrq", probs, cv).reshape(b, 1, H, hd)
     return _out_proj(out, p["wo"])
+
+
+# ------------------------------------------------------- sharded decode path --
+def _write_owned_slot(c, slot: int, new) -> None:
+    """``c[:, slot] = new[:, 0]`` for a DTensor cache (b, t, g, q): the new
+    k/v is brought to the cache's placements (gathered where the cache splits
+    the sequence) and written by the rank whose shard holds the slot, in
+    place, through ``local_map``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = c.device_mesh
+    seq_on = [i for i, p in enumerate(c.placements) if isinstance(p, Shard) and p.dim == 1]
+    if len(seq_on) > 1:
+        raise ValueError(f"cache sequence split over {len(seq_on)} mesh dimensions "
+                         f"({c.placements}); the write takes one split")
+    new_pl = tuple(Replicate() if i in seq_on else p for i, p in enumerate(c.placements))
+    rank = mesh.get_local_rank(seq_on[0]) if seq_on else 0
+
+    def write(cl, nl):
+        lo = rank * cl.shape[1] if seq_on else 0
+        if lo <= slot < lo + cl.shape[1]:
+            cl[:, slot - lo] = nl[:, 0]
+        return cl
+
+    local_map(write, out_placements=list(c.placements), in_placements=(c.placements, new_pl),
+              device_mesh=mesh, redistribute_inputs=True)(c, new)
+
+
+def _sharded_decode(q, ck, cv, last: int, G: int):
+    """One token's attention over a DTensor cache in the flash-decoding
+    layout: q gathered to every rank of a sequence shard, scores of the local
+    positions, the row max and sum reduced across ranks, the probabilities
+    times the local values summed across ranks. The same sums as the plain
+    path's ``torch.softmax``, in another order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    b, _, H, hd = q.shape
+    cache_len = ck.shape[1]
+    keep = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in q.placements)
+    q = q.redistribute(q.device_mesh, keep)
+    qg = q.view(b, 1, G, H // G, hd)
+    scores = torch.einsum("bugrq,btgq->bgrut", qg.float(), ck.float())
+    scores = constrain(scores.reshape(b, H, 1, cache_len), "decode_scores")
+    scores = scores * (1.0 / math.sqrt(hd))
+    valid = torch.arange(cache_len, device=scores.device) <= last
+    scores = scores.masked_fill(~valid, -1e30)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(cv.dtype)
+    probs = probs.reshape(b, G, H // G, 1, cache_len)
+    return torch.einsum("bgrut,btgq->bugrq", probs, cv).reshape(b, 1, H, hd)

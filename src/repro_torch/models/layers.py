@@ -14,8 +14,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..runtime.pspec import constrain, is_sharded, product
 
-def normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+
+def normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
+    """N(0, scale^2) values from ``gen``; with ``gen`` None (a shape-only
+    init on the meta device) an empty tensor of the same shape and dtype."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return x.mul_(scale).to(dtype)  # in place: a stacked leaf is drawn once, not twice
 
@@ -67,12 +73,13 @@ def init_mlp(gen: torch.Generator, lead: tuple, d: int, f: int, kind: str, dtype
 
 def mlp(p: dict, x: torch.Tensor, kind: str, act: str) -> torch.Tensor:
     a = act_fn("silu" if kind == "swiglu" else act)
-    h = x @ p["w_in"]
+    h = product(x, p["w_in"])
     if kind in ("swiglu", "geglu"):
-        h = a(x @ p["w_gate"]) * h
+        h = a(product(x, p["w_gate"])) * h
     else:
         h = a(h)
-    return h @ p["w_out"]
+    h = constrain(h, "ffn_hidden")
+    return product(h, p["w_out"])
 
 
 # ------------------------------------------------------------- embedding ----
@@ -81,10 +88,18 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype, device) -> t
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if is_sharded(table):
+        # FSDP's gather of the d_model shards before the lookup; the vocab
+        # split stays (DTensor's masked lookup takes a table split on vocab
+        # alone)
+        from torch.distributed.tensor import Replicate, Shard
+
+        keep = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in table.placements]
+        table = table.redistribute(table.device_mesh, keep)
     return F.embedding(tokens, table)
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor, tied: bool) -> torch.Tensor:
-    if tied:
-        return x @ table_or_head.T
-    return x @ table_or_head
+    logits = product(x, table_or_head.T if tied else table_or_head)
+    return constrain(logits, "logits")

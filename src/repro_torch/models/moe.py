@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..runtime.pspec import constrain, fit_split, rows_grad, whole_rows
 from .layers import act_fn, normal
 
 
@@ -44,12 +45,12 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
     (token, k) pairs found a place in their expert's queue."""
     b, s, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    tokens = x.reshape(b * s, d)
+    tokens = whole_rows(x).reshape(b * s, d)
     n = tokens.shape[0]
     gl = min(cfg.moe_group, n)
     n_groups = max(1, n // gl)
     gl = n // n_groups
-    xt = tokens[:n_groups * gl].reshape(n_groups, gl, d)
+    xt = fit_split(tokens[:n_groups * gl], 0, n_groups).reshape(n_groups, gl, d)
 
     probs = torch.softmax(xt.float() @ p["router"], dim=-1)  # (g, t, E)
     # top-k gates (sorted, as jax.lax.top_k), normalised over the chosen experts
@@ -72,19 +73,21 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
     gated = (gate_vals[..., None] * onehot).reshape(n_groups * gl, K, E)
     combine = (gated.transpose(1, 2) @ pos_oh.reshape(n_groups * gl, K, C))
     combine = combine.reshape(n_groups, gl, E, C).to(x.dtype)
-    dispatch = (combine > 0).to(x.dtype)
+    dispatch = constrain((combine > 0).to(x.dtype), "moe_dispatch")
 
     # the expert GEMMs in the promoted dtype of x and the weights, as JAX's
     # einsums promote (a bf16 x with fp32 weights runs them in fp32); each
     # .to is a no-op where the dtypes agree
     wdt = torch.promote_types(x.dtype, p["w_in"].dtype)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xt).to(wdt)  # (g, E, C, d)
+    xe = constrain(xe, "moe_expert_in")
     h = torch.einsum("gecd,edf->gecf", xe, p["w_in"].to(wdt))
     if "w_gate" in p:
         gt = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(wdt))
         h = act_fn("silu" if cfg.mlp == "swiglu" else cfg.act)(gt) * h
     else:
         h = act_fn(cfg.act)(h)
+    h = constrain(h, "moe_hidden")
     ye = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(wdt))
     y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
 
@@ -96,4 +99,4 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
     y = y.reshape(n_groups * gl, d)
     if n_groups * gl < n:  # the ragged tail passes through, as in JAX
         y = torch.cat([y, tokens[n_groups * gl:]], dim=0)
-    return y.reshape(b, s, d), aux, keep
+    return rows_grad(fit_split(y, 0, b).reshape(b, s, d)), aux, keep

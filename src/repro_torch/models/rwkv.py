@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6 import ops as wkv_ops
+from ..runtime.pspec import constrain, fit_split, product
 from .layers import normal
 
 LORA_R = 32  # low-rank dim for the dynamic mix / decay projections
@@ -62,23 +63,23 @@ def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor) -> list:
     """Data-dependent token-shift mixing -> r, k, v, w, g inputs (RWKV6)."""
     dx = xx - x
     xxx = x + dx * p["mu_x"]
-    lora = torch.tanh(xxx @ p["A_mix"])
-    lora = lora.view(*lora.shape[:-1], 5, LORA_R)
+    lora = torch.tanh(product(xxx, p["A_mix"]))
+    lora = fit_split(lora, -1, 5).reshape(*lora.shape[:-1], 5, LORA_R)
     dyn = torch.einsum("...er,erd->...ed", lora, p["B_mix"])  # (..., 5, d)
     mixed = x[..., None, :] + dx[..., None, :] * (p["mu"] + dyn)
     return list(mixed.unbind(-2))
 
 
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
-    lw = xw @ p["A_w"]
-    w = p["w0"] + (torch.tanh(lw) @ p["B_w"]).float()
+    lw = product(xw, p["A_w"])
+    w = p["w0"] + product(torch.tanh(lw), p["B_w"]).float()
     return torch.exp(-torch.exp(w))  # in (0, 1), data-dependent per channel
 
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int, eps: float = 64e-5):
     """Head-wise normalization of the wkv output (population variance, as
     ``jnp.var``)."""
-    yh = y.reshape(*y.shape[:-1], H, -1).float()
+    yh = fit_split(y, -1, H).reshape(*y.shape[:-1], H, -1).float()
     mu = yh.mean(dim=-1, keepdim=True)
     var = yh.var(dim=-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + eps)
@@ -99,25 +100,26 @@ def rwkv_time_mix(p: dict, cfg: ArchConfig, x: torch.Tensor, shift: torch.Tensor
     P = cfg.ssm_head_dim
     H = d // P
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shifted(x, shift))
-    r = (xr @ p["Wr"]).view(b, s, H, P)
-    k = (xk @ p["Wk"]).view(b, s, H, P)
-    v = (xv @ p["Wv"]).view(b, s, H, P)
-    g = F.silu(xg @ p["Wg"])
-    w = _decay(p, xw).view(b, s, H, P)
-    u = p["u"].view(H, P)
-    y, new_state = wkv_ops.wkv6(r.float(), k.float(), v.float(), w, u, state,
-                                state_out=state_out)
+    r = fit_split(product(xr, p["Wr"]), -1, H).reshape(b, s, H, P)
+    k = fit_split(product(xk, p["Wk"]), -1, H).reshape(b, s, H, P)
+    v = fit_split(product(xv, p["Wv"]), -1, H).reshape(b, s, H, P)
+    g = F.silu(product(xg, p["Wg"]))
+    w = fit_split(_decay(p, xw), -1, H).reshape(b, s, H, P)
+    u = p["u"].reshape(H, P)
+    r32, k32, v32 = (constrain(a.float(), "ssm_x") for a in (r, k, v))
+    y, new_state = wkv_ops.wkv6(r32, k32, v32, w, u, state, state_out=state_out)
+    y = constrain(y, "ssm_x")
     y = _group_norm(y.reshape(b, s, d), p["ln_x"], H).to(x.dtype)
-    return (y * g) @ p["Wo"], x[:, -1, :], new_state
+    return product(y * g, p["Wo"]), x[:, -1, :], new_state
 
 
 def rwkv_channel_mix(p: dict, cfg: ArchConfig, x: torch.Tensor, shift: torch.Tensor):
     xx = _shifted(x, shift)
     xr = x + (xx - x) * p["cm_mu_r"]
     xk = x + (xx - x) * p["cm_mu_k"]
-    kk = F.relu(xk @ p["cm_Wk"]).square()
-    vv = kk @ p["cm_Wv"]
-    rr = torch.sigmoid(xr @ p["cm_Wr"])
+    kk = constrain(F.relu(product(xk, p["cm_Wk"])).square(), "ffn_hidden")
+    vv = product(kk, p["cm_Wv"])
+    rr = torch.sigmoid(product(xr, p["cm_Wr"]))
     return rr * vv, x[:, -1, :]
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.ssd_scan import ops as ssd_ops
+from ..runtime.pspec import constrain, product
 from .layers import normal, rmsnorm
 
 
@@ -51,7 +52,7 @@ def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along seq, then SiLU: xbc (b, s, c), w (k, c)."""
     k, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = torch.cat([torch.zeros_like(xbc[:, :k - 1]), xbc], dim=1)  # DTensor has no pad
     out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
     return F.silu(out + b)
 
@@ -64,16 +65,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _gated_out(p: dict, cfg: ArchConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["w_out"]
+    return product(y, p["w_out"])
 
 
 def mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: (b, s, d)."""
     b, s, _ = x.shape
     H, P, N, di = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
-    z, xbc, dtr = _split_proj(cfg, x @ p["w_in"])
+    z, xbc, dtr = _split_proj(cfg, product(x, p["w_in"]))
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xh = xbc[..., :di].reshape(b, s, H, P)
+    xh = constrain(xbc[..., :di].reshape(b, s, H, P), "ssm_x")
     B, C = xbc[..., di:di + N], xbc[..., di + N:]
     dt = _softplus(dtr.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])

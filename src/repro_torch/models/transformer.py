@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..runtime.pspec import constrain
 from . import attention as attn
 from . import moe, rwkv, ssm
 from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
@@ -107,10 +108,11 @@ def _init_stack(gen: torch.Generator, cfg: ArchConfig, kind: str, lead: tuple, d
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, device=None) -> dict:
     """Random params from ``seed`` with the JAX package's shapes (not its
-    values: torch cannot replay ``jax.random``; ``bridge`` copies those)."""
+    values: torch cannot replay ``jax.random``; ``bridge`` copies those). On
+    the meta device (which has no generator) the same tree, shapes only."""
     plan = layer_plan(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     params: dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
@@ -159,7 +161,13 @@ def _ffn(cfg: ArchConfig, kind: str, p: dict, h: torch.Tensor):
 
 
 def _layer_forward(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor):
-    """One full-sequence layer: (x, MoE aux loss, dropped (token, k) pairs)."""
+    """One full-sequence layer: (x, MoE aux loss, dropped (token, k) pairs),
+    the new x under the ``residual`` constraint."""
+    x, aux, dropped = _layer_body(cfg, kind, local, p, x)
+    return constrain(x, "residual"), aux, dropped
+
+
+def _layer_body(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor):
     if kind == "rwkv":  # zero shift and zero state; the new ones are dropped
         b, _, d = x.shape
         P = cfg.ssm_head_dim
@@ -204,8 +212,11 @@ def _embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     x = embed(params["embed"], batch["tokens"])
     pe = batch.get("patch_embeds") if cfg.frontend == "patch_embed" else None
     if pe is not None and pe.shape[1] <= x.shape[1]:
-        x[:, :pe.shape[1]] = (pe @ params["patch_proj"]).to(x.dtype)
-    return x
+        proj = (pe @ params["patch_proj"]).to(x.dtype)
+        # out of place: a slice write into a sharded or pending-sum DTensor
+        # could land in a copy
+        x = torch.cat([proj, x[:, pe.shape[1]:]], dim=1)
+    return constrain(x, "emb")
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False):

@@ -4,8 +4,8 @@
 Next-token-prediction batches come from a seeded PRNG "document stream"
 (zipfian token distribution with structured repetition so models can reduce
 loss). State = (seed, step); capturing it in checkpoints makes restarts
-bit-exact. ``shard_for_host`` (placement on a device mesh) is not ported
-yet: it waits for the port's sharding.
+bit-exact. ``shard_for_host`` places a host batch on a device mesh under a
+``ShardingPolicy``'s input placements.
 """
 from __future__ import annotations
 
@@ -80,3 +80,15 @@ class TokenStream:
         while True:
             yield self.next()
 
+
+
+def shard_for_host(batch: dict, mesh, policy) -> dict:
+    """Place a host batch (numpy arrays, lists or tensors, the same on every
+    rank) onto ``mesh`` under the policy's batch sharding: DTensors, token
+    ids and labels as int64, each rank keeping its own rows."""
+    from .._device import batch_on_device
+    from .sharding import distribute, mesh_device
+
+    placed = batch_on_device(batch, mesh_device(mesh))
+    specs = policy.input_specs(placed)
+    return {name: distribute(x, mesh, specs[name]) for name, x in placed.items()}

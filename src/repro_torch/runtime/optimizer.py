@@ -18,6 +18,7 @@ from typing import Any
 import torch
 
 from ..tree import tree_leaves, tree_map
+from .pspec import settled
 
 
 @dataclass(frozen=True)
@@ -45,15 +46,17 @@ def lr_schedule(c: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(c: AdamWConfig, params: Any) -> dict:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=c.moment_dtype, device=p.device)
+    def zeros(p):  # a DTensor's moments take its placements
+        return torch.zeros_like(p, dtype=c.moment_dtype, memory_format=torch.contiguous_format)
 
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
     return {"step": step, "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(torch.stack([g.float().square().sum() for g in tree_leaves(tree)]).sum())
+    # a sharded leaf's sum is reduced before the stack (``settled``)
+    return torch.sqrt(torch.stack([settled(g.float().square().sum())
+                                   for g in tree_leaves(tree)]).sum())
 
 
 @torch.no_grad()

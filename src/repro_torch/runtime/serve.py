@@ -5,9 +5,16 @@ continuous-batching engine, as in ``repro.runtime.serve``.
 wkv6 and SSD-scan kernels on the card); ``make_serve_step`` builds the one-new-token
 step (params, caches, batch, pos) -> (next_token_logits, caches), which
 updates ``caches`` in place.
+
+Given a ``ShardingPolicy`` (``runtime/sharding.py``), both run under its
+activation specs, as JAX's do: params and caches are then DTensors on the
+policy's mesh (``shard_params``, ``shard_cache``), a host batch is placed
+under ``inputs_sharding`` (``data.shard_for_host``), and the device is the
+mesh's. ``ServingEngine`` takes no policy, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -18,25 +25,64 @@ from .._device import batch_on_device, resolve_device
 from ..configs.base import ArchConfig
 from ..models import attention as attn
 from ..models import transformer as tf
+from .data import shard_for_host
+from .pspec import activation_policy, is_sharded
+from .sharding import ShardingPolicy, mesh_device
 
 
-def make_prefill(cfg: ArchConfig, device=None):
-    dev = resolve_device(device)
+def policy_context(policy: Optional[ShardingPolicy]):
+    """The policy's activation specs installed (JAX's ``_ctx``), or nothing."""
+    if policy is None:
+        return contextlib.nullcontext()
+    return activation_policy(policy.mesh, policy.activation_specs())
 
-    @torch.inference_mode()
+
+def policy_device(policy: Optional[ShardingPolicy], device) -> torch.device:
+    """The device an entry point runs on: ``device`` without a policy, the
+    mesh's under one (a ``device`` that names another kind raises)."""
+    if policy is None:
+        return resolve_device(device)
+    dev = mesh_device(policy.mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} disagrees with the policy's mesh on {dev.type}")
+    return dev
+
+
+def place_batch(batch: dict, dev: torch.device, policy: Optional[ShardingPolicy]) -> dict:
+    """A batch on ``dev``, or, under a policy, under its input placements
+    (DTensors already placed stay as they are)."""
+    if policy is None:
+        return batch_on_device(batch, dev)
+    if all(is_sharded(v) for v in batch.values()):
+        return batch
+    return shard_for_host(batch, policy.mesh, policy)
+
+
+def grad_off(policy: Optional[ShardingPolicy]):
+    """``inference_mode`` for plain tensors; ``no_grad`` under a policy, since
+    a DTensor view (a layer of a stacked param) cannot be made in inference
+    mode from a tensor made outside it."""
+    return torch.inference_mode() if policy is None else torch.no_grad()
+
+
+def make_prefill(cfg: ArchConfig, device=None, *, policy: Optional[ShardingPolicy] = None):
+    dev = policy_device(policy, device)
+
     def prefill(params, batch):
-        logits, _ = tf.forward(cfg, params, batch_on_device(batch, dev))
+        with grad_off(policy), policy_context(policy):
+            logits, _ = tf.forward(cfg, params, place_batch(batch, dev, policy))
         return logits
 
     return prefill
 
 
-def make_serve_step(cfg: ArchConfig, device=None):
-    dev = resolve_device(device)
+def make_serve_step(cfg: ArchConfig, device=None, *,
+                    policy: Optional[ShardingPolicy] = None):
+    dev = policy_device(policy, device)
 
-    @torch.inference_mode()
     def serve_step(params, caches, batch, pos):
-        return tf.decode_step(cfg, params, caches, batch_on_device(batch, dev), pos)
+        with grad_off(policy), policy_context(policy):
+            return tf.decode_step(cfg, params, caches, place_batch(batch, dev, policy), pos)
 
     return serve_step
 

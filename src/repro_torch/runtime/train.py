@@ -1,7 +1,9 @@
 """Training step factory, the twin of ``repro.runtime.train``: loss, grads,
 optimizer update; optional remat (``torch.utils.checkpoint`` per layer) and
-microbatch gradient accumulation. Sharding (JAX's ``policy``) is not ported
-yet.
+microbatch gradient accumulation. Given a ``ShardingPolicy``, the step runs
+under its activation specs, as JAX's does: params and optimizer state are
+then DTensors on the policy's mesh and a host batch is placed under
+``inputs_sharding``.
 
 On the card each recurrence and attention layer runs its kernel forward and
 differentiates a plain version backward: attention through
@@ -12,15 +14,17 @@ the CPU path). So every block kind trains on the card as on the CPU.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
-from .._device import batch_on_device, resolve_device
 from ..configs.base import ArchConfig
 from ..models import transformer as tf
 from ..tree import tree_leaves, tree_map
 from .optimizer import AdamWConfig, adamw_init, adamw_update
+from .pspec import settled
+from .serve import place_batch, policy_context, policy_device
+from .sharding import ShardingPolicy
 
 Z_LOSS = 1e-4
 MOE_AUX_WEIGHT = 1e-2
@@ -34,7 +38,9 @@ def loss_fn(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = True):
     logits = logits.float()
     # -log_softmax at the label as lse - logit: no second (b, s, vocab) tensor
     lse = torch.logsumexp(logits, dim=-1)
-    nll = lse - logits.gather(-1, batch["labels"][..., None])[..., 0]
+    # a gather from vocab-sharded logits leaves a masked pending sum, which
+    # DTensor reduces right only before any view of it
+    nll = lse - settled(logits.gather(-1, batch["labels"][..., None]))[..., 0]
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask.to(nll.dtype)
@@ -42,10 +48,10 @@ def loss_fn(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = True):
         denom = torch.clamp(mask.sum(), min=1.0)
     else:
         denom = nll.numel()
-    loss = nll.sum() / denom
+    loss = settled(nll.sum() / denom)
     # z-loss stabilizes the softmax normalizer at scale
-    zl = Z_LOSS * lse.square().mean()
-    total = loss + zl + MOE_AUX_WEIGHT * aux["moe_aux"]
+    zl = settled(Z_LOSS * lse.square().mean())
+    total = loss + zl + MOE_AUX_WEIGHT * settled(aux["moe_aux"])
     return total, {"nll": loss, "z_loss": zl, "moe_aux": aux["moe_aux"]}
 
 
@@ -55,7 +61,8 @@ def _rebuild(tree: Any, leaves) -> Any:
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True,
-                    microbatch: int = 1, device=None):
+                    microbatch: int = 1, device=None,
+                    policy: Optional[ShardingPolicy] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), metrics ``nll``, ``z_loss``, ``moe_aux``, ``lr`` and
     ``grad_norm``. ``microbatch > 1`` splits the batch into that many
@@ -63,7 +70,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
     by the count (the metrics are the last chunk's), as JAX's scan does. A
     batch whose first axis does not divide by ``microbatch`` raises
     ``ValueError`` before any work (JAX's reshape raises there too)."""
-    dev = resolve_device(device)
+    dev = policy_device(policy, device)
 
     def grads_of(params: Any, batch: dict):
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -79,7 +86,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
             grads, met = grads_of(params, batch)
             return _rebuild(params, iter(grads)), met
         n = next(iter(batch.values())).shape[0] // microbatch
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        gsum = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
                 for p in tree_leaves(params)]
         for i in range(microbatch):
             chunk = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
@@ -93,8 +100,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
         if microbatch > 1 and any(n % microbatch for n in rows.values()):
             raise ValueError(f"microbatch={microbatch} does not divide the batch's first axis "
                              f"{rows}: every row must fall in one chunk")
-        grads, met = compute_grads(params, batch_on_device(batch, dev))
-        params_new, opt_new, stats = adamw_update(opt_cfg, grads, opt_state, params)
+        with policy_context(policy):
+            grads, met = compute_grads(params, place_batch(batch, dev, policy))
+            params_new, opt_new, stats = adamw_update(opt_cfg, grads, opt_state, params)
         return params_new, opt_new, {**met, **stats}
 
     return train_step

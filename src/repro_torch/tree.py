@@ -23,3 +23,16 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: str = "") -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, ``path`` the keys and
+    list indices from the root joined by ``/`` (``"blocks/0/attn/wq"``), as
+    the JAX package's ``_path_str`` spells a ``jax.tree_util`` key path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)

@@ -931,3 +931,146 @@ def test_dse_torch_scorer_on_cuda_matches_numpy(cuda, graph, pool):
         a = getattr(got, f)
         assert isinstance(a, np.ndarray) and a.dtype == np.float64, f
         np.testing.assert_allclose(a, getattr(ref, f), rtol=1e-9, atol=1e-12, err_msg=f)
+
+
+# ------------------------------------------------------- sharded, one rank --
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh of one NCCL rank on card 0 (NCCL
+    refuses two ranks on one card); the process group is destroyed after
+    the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dt(x, mesh, placements):
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, mesh, placements, src_data_rank=None)
+
+
+@pytest.mark.gpu
+def test_sharded_qwen3_matches_unsharded_on_one_rank(one_rank_mesh):
+    """Reduced qwen3 under its policy on the one-rank mesh: prefill and 4
+    decode steps within 1e-5 (max |diff| over max |logit|) of the unsharded
+    port on the card, logits DTensors, the flash kernel launched once a
+    layer in the prefill."""
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.serve import make_prefill, make_serve_step
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    params = tf.init_params(cfg, 0, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=torch.Generator().manual_seed(1))
+    want = make_prefill(cfg)(params, {"tokens": toks})
+    cache = tf.init_cache(cfg, 4, 8, torch.float32)
+    want_dec = [make_serve_step(cfg)(params, cache, {"tokens": toks[:, t:t + 1]}, t)[0].clone()
+                for t in range(4)]
+    pol = sh.make_policy(cfg, one_rank_mesh)
+    sp = sh.shard_params(params, pol)
+    kernel.launches = 0
+    got = make_prefill(cfg, policy=pol)(sp, {"tokens": toks})
+    assert kernel.launches == cfg.num_layers
+    assert type(got).__name__ == "DTensor"
+    got = got.full_tensor()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    scache = sh.shard_cache(tf.init_cache(cfg, 4, 8, torch.float32), pol)
+    step = make_serve_step(cfg, policy=pol)
+    for t in range(4):
+        lg = step(sp, scache, {"tokens": toks[:, t:t + 1]}, t)[0].full_tensor()
+        assert ((lg - want_dec[t]).abs().max() / want_dec[t].abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_sharded_kernels_through_local_map(one_rank_mesh):
+    """Each kernel's DTensor path (heads marked split on "model", batch on
+    "data") launches the kernel on the local shard and equals the plain
+    version on the same tensors: flash at 2e-5, wkv6 and the SSD scan at
+    2e-4 (tests/test_kernels.py); the results are DTensors of the inputs'
+    placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    m = one_rank_mesh
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(2, 128, 4, 32, device="cuda", generator=g)
+    k = torch.randn(2, 128, 2, 32, device="cuda", generator=g)
+    v = torch.randn(2, 128, 2, 32, device="cuda", generator=g)
+    kernel.launches = 0
+    out = ops.flash_attention(_dt(q, m, [Shard(0), Shard(2)]), _dt(k, m, [Shard(0), Replicate()]),
+                              _dt(v, m, [Shard(0), Replicate()]), causal=True)
+    assert kernel.launches == 1 and tuple(out.placements) == (Shard(0), Shard(2))
+    assert (out.full_tensor() - mha_reference(q, k, v, causal=True)).abs().max().item() <= 2e-5
+
+    r, kk, vv = (torch.randn(2, 64, 4, 16, device="cuda", generator=g) * 0.5 for _ in range(3))
+    w = torch.rand(2, 64, 4, 16, device="cuda", generator=g) * 0.5 + 0.45
+    u = torch.randn(4, 16, device="cuda", generator=g) * 0.5
+    st = torch.zeros(2, 4, 16, 16, device="cuda")
+    x_pl = [Shard(0), Shard(2)]
+    wkv6_kernel.launches = 0
+    y, s = wkv6_ops.wkv6(*(_dt(a, m, x_pl) for a in (r, kk, vv, w)),
+                         _dt(u, m, [Replicate(), Shard(0)]), _dt(st, m, [Shard(0), Shard(1)]))
+    y0, s0 = wkv6_reference(r, kk, vv, w, u, st)
+    assert wkv6_kernel.launches == 1
+    assert (y.full_tensor() - y0).abs().max().item() <= 2e-4
+    assert (s.full_tensor() - s0).abs().max().item() <= 2e-4
+
+    xh = torch.randn(2, 64, 4, 16, device="cuda", generator=g)
+    dt = torch.rand(2, 64, 4, device="cuda", generator=g) * 0.1
+    A = -torch.rand(4, device="cuda", generator=g)
+    B, C = (torch.randn(2, 64, 8, device="cuda", generator=g) for _ in range(2))
+    ssd_kernel.launches = 0
+    ys = ssd_ops.ssd_scan(_dt(xh, m, x_pl), _dt(dt, m, x_pl), _dt(A, m, [Replicate(), Shard(0)]),
+                          _dt(B, m, [Shard(0), Replicate()]), _dt(C, m, [Shard(0), Replicate()]))
+    assert ssd_kernel.launches == 1
+    assert (ys.full_tensor() - ssd_reference(xh, dt, A, B, C)[0]).abs().max().item() <= 2e-4
+
+
+@pytest.mark.gpu
+def test_dtensor_outside_local_map_raises(one_rank_mesh):
+    """A DTensor never reaches ctypes: each CUDA wrapper raises TypeError on
+    one, and the dispatch raises on a split it cannot run (the head size)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    m = one_rank_mesh
+    q = _dt(torch.randn(1, 32, 2, 16, device="cuda"), m, [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        kernel.flash_attention_cuda(q, q, q)
+    with pytest.raises(TypeError, match="DTensor"):
+        wkv6_kernel.wkv6_cuda(q, q, q, q, q[0, 0], q[:, 0])
+    with pytest.raises(TypeError, match="DTensor"):
+        ssd_kernel.ssd_scan_cuda(q, q[..., 0], q[0, 0, :, 0], q[:, :, 0], q[:, :, 0])
+    with pytest.raises(ValueError, match="head size"):
+        ops.flash_attention(_dt(torch.randn(1, 32, 2, 16, device="cuda"), m,
+                                [Replicate(), Shard(3)]), q, q)
+
+
+@pytest.mark.gpu
+def test_launch_plans_from_the_built_sources(cuda):
+    """The launches the built flash and column-major GEMM sources report,
+    which ``kernel_bench`` reads: flash at hd 128 fp32 is 8 warps of 32 q
+    rows with a q tile and two stages of 32-row k and v tiles; the GEMM's
+    128 x 64 block is 8 warps of 32 rows with a 4-stage ring and the
+    residual tile behind it."""
+    assert kernel.plan(128, torch.float32) == {
+        "threads": 256, "smem_bytes": 256 * 132 * 4 + 4 * 32 * 132 * 4, "bq": 256, "bk": 32}
+    assert kernel.plan(256, torch.bfloat16)["threads"] == 128
+    ring = 4 * (128 + 64) * (64 + 16)
+    assert gemm_kernel.kmajor_plan(64) == {"threads": 256, "wm": 32, "stages": 4,
+                                           "smem_bytes": ring + 128 * 64,
+                                           "smem_bytes_no_residual": ring}
+    assert gemm_kernel.kmajor_plan(128)["threads"] == 256
+    with pytest.raises(ValueError):
+        kernel.plan(48, torch.float32)
