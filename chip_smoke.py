@@ -100,7 +100,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``validate=2`` and a single- to two-tenant hot swap; a prefill -> decode
    hot swap within 5 %; the static verifier clean on the 7 targets of
    ``python -m repro_torch.verify --quick`` and catching each of
-   ``mutate.py``'s five defects.
+   ``mutate.py``'s five defects;
+11. serve: the serving control plane, the fault package and the paper
+   twins on the host (no kernel): ``examples/online_serving.py`` completes
+   every request; seeded fault schedules repeat; each of the five fault
+   classes is detected, quarantined, replayed and completed, and
+   ``examples/fault_tolerant_serving.py`` recovers; a seeded chaos run
+   repeats event for event; ``paper_repro``'s conformance points within
+   tolerance; ``dse_bench --ci``'s call-count gates; ``python -m
+   repro_torch.benchmarks.run`` with no ``ERROR`` row (its rows in
+   ``build/benchmarks_run.csv``).
 
 Every launch count is set to 0 just before a path's first call and read just
 after its last: each of the path's kernels must have launched its expected
@@ -116,6 +125,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2503,6 +2513,202 @@ def drive_deploy(kernel_mods, report) -> None:
            f"launches {json.dumps(launches)}")
 
 
+# the serve phase: the serving control plane, the fault package and the
+# paper-benchmark twins on the host (no kernel). SERVE_SEEDS are the seeds
+# FaultSchedule.random is drawn twice with; SERVE_CHAOS_SEED the JAX
+# package's tests' chaos seed (tests/test_faults.py: a pu-hang on a placed
+# pid); each example runs at its full size (no --small)
+SERVE_SEEDS, SERVE_CHAOS_SEED = (0, 1, 42, 1001, 65535), 1001
+SERVE_CLASSES = ("pu-hang", "token-drop", "token-corrupt", "hbm-stall", "link-spike")
+
+
+def _serve_example(module, report) -> list[str]:
+    """Run ``repro_torch.examples.<module>`` at its full size, as a user
+    does; its own checks raise ``SystemExit`` with a message on a miss."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"repro_torch.examples.{module}").main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with swapped(sys, "argv", [module]), contextlib.redirect_stdout(out):
+        try:
+            main()
+        except SystemExit as e:
+            raise AssertionError(f"serve {module}: {e}") from None
+    lines = out.getvalue().splitlines()
+    report(f"serve {module}: {time.perf_counter() - t0:.2f} s on the host; {lines[-1]}")
+    return lines
+
+
+def drive_serve(kernel_mods, report) -> None:
+    """The serving control plane, the fault package and the paper-benchmark
+    twins on the host (no kernel), held to the port's own invariants:
+
+    a. ``examples/online_serving.py``'s scenario (full size) completes every
+       request;
+    b. ``FaultSchedule.random(seed)`` is the same schedule twice;
+    c. each of the five fault classes, injected after one clean serving
+       window, is detected, its PU or HBM channel quarantined, the
+       interrupted sessions replayed and every request completed; then
+       ``examples/fault_tolerant_serving.py`` (full size);
+    d. two runs of one seeded chaos schedule give the same event log and
+       ``RunReport``;
+    e. ``paper_repro.ci_points()`` each within its own tolerance;
+    f. ``dse_bench`` ``--ci``'s call-count gates (zero codegen while
+       exploring, one analysis per graph); the engines' byte-equality bit is
+       printed, not held (it drifts by one ulp on some hosts);
+    g. ``python -m repro_torch.benchmarks.run``: exit 0, no ``ERROR`` row.
+    Every launch count is set to 0 before and must read 0 after."""
+    from repro_torch.benchmarks import dse_bench, paper_repro
+    from repro_torch.faults import (FaultSchedule, HBMStall, LinkSpike, PUHang,
+                                    TokenCorrupt, TokenDrop)
+    from repro_torch.core.isa import DataMove
+    from repro_torch.serve import Request, Server
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    t_phase = time.time()
+    steps = {}
+
+    # a. online serving
+    t0 = time.perf_counter()
+    _serve_example("online_serving", report)
+    steps["a online_serving"] = time.perf_counter() - t0
+
+    # b. seeded schedules
+    t0 = time.perf_counter()
+    for seed in SERVE_SEEDS:
+        a, b = FaultSchedule.random(seed, n=3), FaultSchedule.random(seed, n=3)
+        if a != b or a.describe() != b.describe():
+            raise AssertionError(f"serve FaultSchedule.random({seed}): {a} then {b}")
+    print(f"serve schedules: FaultSchedule.random(seed, n=3) the same twice for seeds "
+          f"{list(SERVE_SEEDS)}, e.g. {FaultSchedule.random(SERVE_SEEDS[-1], n=3).describe()}")
+    steps["b schedules"] = time.perf_counter() - t0
+
+    # c. every fault class through the serving loop
+    t0 = time.perf_counter()
+
+    def stage_pids(dep):
+        cm = dep.members[0].compiled
+        return [cm.pid_map[i] for i in sorted(s.index for s in cm.part.stages if s.nids)]
+
+    def used_channel(dep):
+        from collections import Counter
+
+        c = Counter(i.channel for p in dep.programs() for g in (p.ld, p.cp, p.st)
+                    for i in g.instructions if isinstance(i, DataMove))
+        return c.most_common(1)[0][0]
+
+    for klass in SERVE_CLASSES:
+        srv = Server(verify=False)
+        srv.join("t", depth=1, max_slots=2, window=4)
+        srv.submit(Request(tenant="t", prompt_tokens=8, max_new_tokens=8))
+        srv.submit(Request(tenant="t", prompt_tokens=4, max_new_tokens=8))
+        if not srv.step():
+            raise AssertionError(f"serve {klass}: the clean window served nothing")
+        dep = srv.system.deployment
+        pids, chan = stage_pids(dep), used_channel(dep)
+        fault = {"pu-hang": PUHang(pid=pids[-1], at_cycle=2000.0),
+                 "token-drop": TokenDrop(src_pid=pids[0]),
+                 "token-corrupt": TokenCorrupt(src_pid=pids[0]),
+                 "hbm-stall": HBMStall(channel=chan, at_cycle=1000.0),
+                 "link-spike": LinkSpike(src_pid=pids[0], dst_pid=pids[1],
+                                         extra_cycles=10_000_000.0)}[klass]
+        srv.inject(FaultSchedule(faults=(fault,)))
+        rep = srv.drain()
+        kinds = [e.kind for e in srv.events]
+        ok = (srv.faults and "fault" in kinds and "quarantine" in kinds and "replay" in kinds
+              and (srv.quarantined or srv.dead_channels)
+              and all(r.completed for r in srv.requests))
+        if klass == "hbm-stall":
+            ok = ok and chan in srv.dead_channels \
+                and chan not in srv.system.deployment.members[0].channels
+        if not ok:
+            raise AssertionError(f"serve {klass}: faults {[str(r) for r in srv.faults]}, "
+                                 f"events {[str(e) for e in srv.events]}")
+        print(f"serve {klass}: {len(srv.faults)} report(s), first {srv.faults[0]}; "
+              f"quarantined pu {sorted(srv.quarantined)} hbm {sorted(srv.dead_channels)}; "
+              f"{sum(r.completed for r in srv.requests)}/{len(srv.requests)} completed over "
+              f"{srv.windows} windows, {rep.total_tokens} tokens")
+    _serve_example("fault_tolerant_serving", report)
+    steps["c fault classes"] = time.perf_counter() - t0
+
+    # d. chaos determinism
+    t0 = time.perf_counter()
+
+    def chaos():
+        srv = Server(verify=False)
+        srv.join("a", depth=1, max_slots=2, window=4)
+        srv.join("b", depth=1, max_slots=1, window=4)
+        for i in range(3):
+            srv.submit(Request(tenant="a", prompt_tokens=4 + i, max_new_tokens=8))
+        srv.submit(Request(tenant="b", prompt_tokens=6, max_new_tokens=8))
+        srv.inject(FaultSchedule.random(SERVE_CHAOS_SEED, n=1))
+        rep = srv.drain()
+        return [str(e) for e in srv.events], str(rep), sorted(srv.quarantined), \
+            sorted(srv.dead_channels), len(srv.faults)
+
+    first, second = chaos(), chaos()
+    if first != second or not first[4]:
+        raise AssertionError(f"serve chaos seed {SERVE_CHAOS_SEED}: the runs differ or "
+                             f"detected nothing ({first[4]} / {second[4]} reports)")
+    print(f"serve chaos seed {SERVE_CHAOS_SEED}: two runs, the same {len(first[0])} events and "
+          f"report; {first[4]} fault report(s), quarantined pu {first[2]} hbm {first[3]}")
+    steps["d chaos"] = time.perf_counter() - t0
+
+    # e. the paper's conformance points
+    t0 = time.perf_counter()
+    points = paper_repro.ci_points()
+    bad = [p["name"] for p in points if not p["ok"]]
+    if bad:
+        raise AssertionError(f"serve paper_repro ci points over tolerance: {bad}")
+    print("serve paper_repro ci: " + "; ".join(
+        f"{p['name']} {p['rel_err']:.4f} <= {p['tolerance']}" for p in points))
+    steps["e paper_repro ci"] = time.perf_counter() - t0
+
+    # f. the DSE engines' call counts
+    t0 = time.perf_counter()
+    cases = dse_bench.ci_cases()
+    gates = {c["name"]: (c["gate_zero_codegen"], c["gate_one_analysis_per_graph"],
+                         c["gate_batched_equal"]) for c in cases}
+    if not all(z and one for z, one, _ in gates.values()):
+        raise AssertionError(f"serve dse_bench --ci call-count gates: {gates}")
+    print("serve dse_bench ci (zero codegen, one analysis a graph, engines byte-equal): "
+          + json.dumps({k: [int(x) for x in v] for k, v in gates.items()}))
+    steps["f dse_bench ci"] = time.perf_counter() - t0
+
+    # g. the benchmark harness, as a user runs it
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run"], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=900)
+    rows = proc.stdout.splitlines()
+    errors = [r for r in rows if ",ERROR," in r]
+    if proc.returncode != 0 or errors or not rows:
+        raise AssertionError(f"serve benchmarks.run: exit {proc.returncode}, rows {errors}, "
+                             f"stderr {proc.stderr[-2000:]}")
+    out = root / "build" / "benchmarks_run.csv"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(proc.stdout)
+    keep = ("sim.", "transformer.", "mt.switch", "decode.switch", "serve.", "kernel.",
+            "gpu_dse.")
+    for row in rows:
+        if row.startswith(keep) or ".total," in row:
+            print(f"serve benchmarks.run: {row}")
+    steps["g benchmarks.run"] = time.perf_counter() - t0
+    print(f"serve benchmarks.run: exit 0, {len(rows) - 1} rows, no ERROR row (all in {out})")
+
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    if any(launches.values()):
+        raise AssertionError(f"serve phase launched {launches}, want none")
+    report(f"serve phase: {time.time() - t_phase:.1f} s on the host "
+           f"({json.dumps({k: round(v, 3) for k, v in steps.items()})} s a step), "
+           f"launches {json.dumps(launches)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2674,6 +2880,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- deploy --
     drive_deploy(kernel_mods, report)
+
+    # ---------------------------------------------------------------- serve --
+    drive_serve(kernel_mods, report)
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row]}))

@@ -7,9 +7,9 @@ copied as it is; the port keeps its own copy instead of importing the JAX
 package, and the tests hold the copies to the originals (encodings word for
 word, simulator results field for field). The FPGA constants of ``pu.py``
 and ``isu.py`` (300 MHz, 14.4 GB/s a channel, SLR penalties) model the
-paper's Alveo U50, not the card. The simulator's fault injection and
-watchdog raise ``NotImplementedError``: the fault package is not copied
-yet."""
+paper's Alveo U50, not the card. ``demo.py`` (the Fig. 3 two-PU programs) is
+not re-exported here, as in the JAX package; the simulator's fault injection
+and watchdog are ``repro_torch.faults``."""
 from .isa import (
     AddrCyc,
     AddrLen,

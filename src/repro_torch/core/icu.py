@@ -91,7 +91,7 @@ class ICU:
         self.stats: dict[Group, GroupStats] = {g: GroupStats() for g in Group}
         self.program: Optional[PUProgram] = None
         self.member = ""  # owning deployment member label (set by start)
-        # Injected fault state (repro.faults): when set, every decoder of
+        # Injected fault state (repro_torch.faults): when set, every decoder of
         # this PU parks forever once the clock reaches ``hang_at`` — the
         # model of a hardware PU that silently stops issuing instructions.
         self.hang_at: Optional[float] = None

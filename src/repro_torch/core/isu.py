@@ -73,7 +73,7 @@ class ISUNetwork:
         self.deliver: Optional[Callable[[int, Token], None]] = None
         self.tokens_sent = 0
         self.tokens_dropped = 0
-        # Injected fault hook (repro.faults): maps (token, latency) to a
+        # Injected fault hook (repro_torch.faults): maps (token, latency) to a
         # possibly corrupted token and latency, or to (None, _) to drop the
         # token in the fabric. Installed per reset; None on a healthy fabric.
         self.fault_hook: Optional[

@@ -27,8 +27,6 @@ from .isu import ISUNetwork
 from .program import PUProgram
 from .pu import N_HBM_CHANNELS, PUSpec, SYS_CLK_HZ, make_u50_system, system_peak_tops
 
-_FAULTS_ITEM = "the JAX package's faults/ is not copied into the port (ROADMAP queue 1 item 16)"
-
 
 @dataclass(frozen=True)
 class PipelineMember:
@@ -144,7 +142,7 @@ class SimResult:
     round_latencies_cycles: list[float] = field(default_factory=list)
     round_end_cycles: list[float] = field(default_factory=list)
     members: list[MemberSimResult] = field(default_factory=list)
-    # Watchdog detections (FaultReport of the fault package); a faulted run is not
+    # Watchdog detections (repro_torch.faults.FaultReport); a faulted run is not
     # "deadlocked" — the fault IS the diagnosis, and the run was halted by
     # detection rather than by draining the heap.
     faults: list = field(default_factory=list)
@@ -218,6 +216,8 @@ class MultiPUSimulator:
     def __init__(self, pus: Optional[list[PUSpec]] = None, trace: bool = False) -> None:
         self.pus = pus if pus is not None else make_u50_system()
         self._trace = trace
+        self.fault_schedule = None  # repro_torch.faults.FaultSchedule, or None
+        self.injector = None        # per-run FaultInjector when armed
         self.reset()
 
     def reset(self) -> None:
@@ -225,7 +225,13 @@ class MultiPUSimulator:
 
         This is the simulator analogue of the paper's headline feature: the
         PU array (the FPGA bitstream) never changes; switching deployment
-        strategies only swaps the instruction programs loaded next."""
+        strategies only swaps the instruction programs loaded next.
+
+        All injected-fault state (hang gates, fabric hooks, stall
+        processes) lives on the per-run objects rebuilt here, so reset
+        always starts clean; an attached fault *schedule* is re-armed onto
+        the fresh state (the schedule models broken hardware, which does
+        not heal on a program swap) until :meth:`clear_faults`."""
         self.kernel = Kernel()
         self.kernel.trace_enabled = self._trace
         self.isu = ISUNetwork(self.kernel, self.pus)
@@ -236,14 +242,28 @@ class MultiPUSimulator:
             p.pid: ICU(self.kernel, p, self.isu, self.hbm_channels) for p in self.pus
         }
         self.isu.deliver = lambda dst, tok: self.icus[dst].deliver(tok)
+        self._arm()
 
-    # -- fault injection: the JAX package's faults/ is not copied yet ------
+    # -- fault injection (repro_torch.faults) -------------------------------
     def inject(self, schedule) -> None:
-        """Fault schedules come with the copy of the fault package."""
-        raise NotImplementedError(f"fault injection: {_FAULTS_ITEM}")
+        """Attach a :class:`repro_torch.faults.FaultSchedule`; it arms onto fresh
+        run state now and re-arms on every reset until cleared."""
+        self.fault_schedule = schedule
+        self.reset()
 
     def clear_faults(self) -> None:
-        raise NotImplementedError(f"fault injection: {_FAULTS_ITEM}")
+        """Detach the fault schedule and rebuild clean run state."""
+        self.fault_schedule = None
+        self.reset()
+
+    def _arm(self) -> None:
+        if self.fault_schedule:
+            from ..faults.inject import FaultInjector
+
+            self.injector = FaultInjector(self, self.fault_schedule)
+            self.injector.install()
+        else:
+            self.injector = None
 
     @property
     def peak_tops(self) -> float:
@@ -266,10 +286,9 @@ class MultiPUSimulator:
         pipeline whose entry/exit default to ``first_pid``/``last_pid`` (or
         the first/last program in the list).
 
-        ``watchdog`` (the fault monitor) comes with the copy of the fault
-        package and raises until then."""
-        if watchdog is not None:
-            raise NotImplementedError(f"watchdog: {_FAULTS_ITEM}")
+        ``watchdog`` (a :class:`repro_torch.faults.Watchdog`) spawns the fault
+        monitor: silent hangs halt the run and come back as structured
+        ``SimResult.faults`` instead of an unbounded simulation."""
         if not programs:
             raise ValueError("no programs")
         if members is not None and (first_pid is not None or last_pid is not None):
@@ -288,6 +307,10 @@ class MultiPUSimulator:
         for prog in programs:
             self.icus[prog.pid].start(prog, member=label_of.get(prog.pid, ""))
         faults: list = []
+        if watchdog is not None:
+            from ..faults.watchdog import spawn_monitor
+
+            spawn_monitor(self, watchdog, members, faults)
         end = self.kernel.run(until=until_cycles)
 
         stats = {p.pid: self.icus[p.pid].stats for p in self.pus}

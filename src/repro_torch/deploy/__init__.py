@@ -8,8 +8,9 @@ switching without reconfiguration, single-tenant <-> multi-tenant swaps
 included), ``Session`` (the handle load/switch return: tenants, current
 strategy, swap history) and ``RunReport`` (the result schema of ``run()``).
 All of it is host code over the instruction programs and the simulator
-copy; it touches no tensor. ``System.inject`` / ``clear_faults`` raise
-``NotImplementedError`` until the fault package is copied."""
+copy; it touches no tensor. ``System.inject`` / ``clear_faults`` arm and
+clear a ``repro_torch.faults.FaultSchedule``, and ``repro_torch.serve.Server``
+drives a ``System`` online."""
 from .deployment import DeployedMember, Deployment, compile_deployment
 from .report import SLO, RunReport, TenantReport
 from .resources import MemberResources, check_fits, partition_resources

@@ -6,10 +6,10 @@ in a :class:`RunReport`, the single schema every caller reads: per-tenant
 throughput, token accounting, latency percentiles and SLO attainment. It
 forwards unknown attributes to the ``SimResult``, so ``aggregate_fps`` and
 ``fps_by_workload`` keep working on it. The ``"serve"`` kind (a report
-aggregated over serving windows, no backing sim) is what the JAX package's
-``Server.drain`` builds; the serving layer is not copied into the port yet.
+aggregated over serving windows, no backing sim) is what
+``repro_torch.serve.Server.drain`` builds.
 
-:class:`SLO` lives here rather than in the serving layer because reports
+:class:`SLO` lives here rather than in :mod:`repro_torch.serve` because reports
 carry attainment against it and ``deploy`` must not import the serving
 layer that builds on it.
 """

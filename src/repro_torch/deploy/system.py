@@ -49,14 +49,14 @@ class System:
         self.deployment: Optional[Deployment] = None
         self.session: Optional[Session] = None
         self.history: list[tuple[str, RunReport]] = []
-        # The fault monitor comes with the copy of the fault package; the
-        # simulator copy raises for any watchdog until then, so this stays None.
+        # Optional repro_torch.faults.Watchdog: every run spawns the fault
+        # monitor so silent hangs come back as structured RunReport.faults.
         self.watchdog = None
 
-    # -- fault injection: the simulator copy raises until faults/ is copied --
+    # -- fault injection (repro_torch.faults) --------------------------------
     def inject(self, schedule) -> None:
-        """Attach a fault schedule to the simulated hardware (raises
-        ``NotImplementedError`` in the simulator copy, before any work)."""
+        """Attach a :class:`repro_torch.faults.FaultSchedule` to the simulated
+        hardware; it re-arms on every run until :meth:`clear_faults`."""
         self.sim.inject(schedule)
 
     def clear_faults(self) -> None:

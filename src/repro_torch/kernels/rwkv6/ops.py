@@ -52,8 +52,9 @@ def wkv6(r, k, v, w, u, state, *, state_out: Optional[torch.Tensor] = None):
         return _sharded_wkv6(r, k, v, w, u, state, state_out)
     if _sharded.is_shape_only(r):
         flops, n_bytes = kernel.work(*r.shape)
-        outs = (r, state if state_out is None else state_out)
-        return _sharded.shape_only("wkv6", flops, n_bytes, outs, r, k, v, w, u, state)
+        y, final = _sharded.shape_only("wkv6", flops, n_bytes, (r, state), r, k, v, w, u, state)
+        # the kernel writes the final state over state_out: the same write here
+        return y, final if state_out is None else state_out.copy_(final)
     if r.is_cuda:
         if torch.is_grad_enabled() and any(
                 x.requires_grad for x in (r, k, v, w, u, state)):

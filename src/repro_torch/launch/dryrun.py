@@ -61,7 +61,8 @@ class CellResult:
     status: str  # ok | skipped | error
     reason: str = ""
     compile_s: float = 0.0  # host seconds to trace the step (JAX: to compile it)
-    # per device, bytes: the step's arguments and outputs (local shards)
+    # per device, bytes: the step's arguments (local shards) and what it
+    # writes into its outputs (an argument written in place: the bytes written)
     arg_bytes: int = 0
     output_bytes: int = 0
     temp_bytes: int = 0  # not measured (no allocator runs)
@@ -126,6 +127,8 @@ def _build_step(cfg: ArchConfig, shape: ShapeCfg, policy):
 
 def _trace(cfg, shape, policy):
     """Run the cell's step once: (counts, argument bytes, output bytes).
+    An output the step wrote in place into an argument (a decode step's
+    cache) counts the bytes written (``flop_analysis.output_bytes``).
 
     The arguments are made under a ``FakeTensorMode``; the step runs with the
     mode off the stack, its shards FakeTensors that carry it: DTensor's own
@@ -139,7 +142,8 @@ def _trace(cfg, shape, policy):
         fn, args = _build_step(cfg, shape, policy)
     with flop_analysis.analyze() as counts:
         out = fn(*args)
-    return counts, flop_analysis.local_bytes(args), flop_analysis.local_bytes(out)
+    return (counts, flop_analysis.local_bytes(args),
+            flop_analysis.output_bytes(out, args, counts.writes))
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: bool = True,

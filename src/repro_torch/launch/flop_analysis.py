@@ -16,7 +16,12 @@ tensors:
     records (``kernels/_sharded.py``), by the formulas of their bounds.
   * HBM bytes: the step's arguments and outputs, each local shard read or
     written once (``local_bytes``): a lower bound, where JAX counts every
-    fused op's output.
+    fused op's output. An output that is an argument written in place (a
+    decode step's cache) counts the bytes the step wrote into it
+    (``output_bytes``), as JAX counts a donated buffer's
+    dynamic-update-slice by its update: ``LocalCounter`` records, by
+    storage, the bytes each local in-place op (``copy_``, ``index_put_``,
+    ...) writes.
   * Collective wire bytes: every collective DTensor issues (those
     ``CommDebugMode`` counts), sized from its output tensor, with the
     ring factors of ``hlo_analysis.py``: all-gather and reduce-scatter
@@ -70,6 +75,7 @@ class RooflineCounts:
     collective_ops: int = 0
     comm_debug_ops: int = 0  # CommDebugMode's count of the same run
     kernels: dict = field(default_factory=dict)  # name -> {"calls", "flops", "bytes"}
+    writes: dict = field(default_factory=lambda: defaultdict(float))  # storage -> bytes written
 
 
 def _in_shape_inference() -> bool:
@@ -88,6 +94,42 @@ def _group_size(args) -> int:
 
     name = next(a for a in reversed(args) if isinstance(a, str))
     return _resolve_process_group(name).size()
+
+
+# in-place ops whose written elements are an update operand's (argument
+# index), not the whole destination
+_UPDATES = {"index_put_": 2, "index_copy_": 3, "index_add_": 3, "scatter_": 3,
+            "scatter_add_": 3, "scatter_reduce_": 3, "masked_scatter_": 2}
+
+
+def storage_key(x):
+    """What two tensors that share memory have in common (a view and its
+    base; a DTensor and its local shard)."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    if _sharded.is_dtensor(x):
+        x = x.to_local()
+    return StorageWeakRef(x.untyped_storage())
+
+
+def _written(func, args, kwargs):
+    """(destination, bytes) of each tensor a mutating op writes: an
+    indexed write its update's elements, any other write its whole
+    destination view."""
+    out = []
+    schema = func._schema
+    for i, a in enumerate(schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        x = args[i] if i < len(args) else kwargs.get(a.name)
+        if not isinstance(x, torch.Tensor):
+            continue
+        n = x.numel()
+        u = _UPDATES.get(func._overloadpacket.__name__)
+        if u is not None and u < len(args) and isinstance(args[u], torch.Tensor):
+            n = min(n, args[u].numel())
+        out.append((x, n * x.element_size()))
+    return out
 
 
 def _nbytes(x) -> int:
@@ -114,6 +156,9 @@ class LocalCounter(TorchDispatchMode):
         if packet in flop_registry and not _in_shape_inference():
             f = float(flop_registry[packet](*args, **kwargs, out_val=out))
             self.counts.dot_flops += f
+        if func._schema.is_mutable and not _in_shape_inference():
+            for x, n in _written(func, args, kwargs):
+                self.counts.writes[storage_key(x)] += n
         kind = COLLECTIVES.get(packet.__name__) if func.namespace == "_c10d_functional" else None
         if kind is not None:
             n = _group_size(args)
@@ -140,6 +185,7 @@ def analyze():
     counts.flops = counts.dot_flops + counts.kernel_flops
     counts.comm_debug_ops = comm.get_total_counts()
     counts.collective_bytes_by_type = dict(counts.collective_bytes_by_type)
+    counts.writes = dict(counts.writes)
 
 
 def local_bytes(tree: Any) -> int:
@@ -152,4 +198,25 @@ def local_bytes(tree: Any) -> int:
         if _sharded.is_dtensor(x):
             x = x.to_local()
         total += x.numel() * x.element_size()
+    return total
+
+
+def output_bytes(out: Any, args: Any, writes: dict) -> int:
+    """Bytes a step writes into its outputs: a new tensor's local shard
+    whole; an output that shares its storage with an argument (the same
+    tensor, a view, written in place) the bytes the step wrote into that
+    storage (``writes``, from ``analyze``), at most once a storage and at
+    most its local size."""
+    held = {storage_key(x) for x in tree_leaves(args) if isinstance(x, torch.Tensor)}
+    total, seen = 0, set()
+    for x in tree_leaves(out):
+        if not isinstance(x, torch.Tensor):
+            continue
+        size = local_bytes(x)
+        key = storage_key(x)
+        if key not in held:
+            total += size
+        elif key not in seen:
+            seen.add(key)
+            total += min(int(writes.get(key, 0)), size)
     return total

@@ -138,8 +138,11 @@ def decode_attention(
 def _write_owned_slot(c, slot: int, new) -> None:
     """``c[:, slot] = new[:, 0]`` for a DTensor cache (b, t, g, q): the new
     k/v is brought to the cache's placements (gathered where the cache splits
-    the sequence) and written by the rank whose shard holds the slot, in
-    place, through ``local_map``."""
+    the sequence) and written in place through ``local_map`` by the rank
+    whose shard holds the slot. Every other rank rewrites one slot of its own
+    with its old value, as XLA's SPMD partitioner lowers a dynamic-update-slice
+    (a clamped index and a select): each rank then writes one slot a step,
+    which is what the dry run counts (``launch/flop_analysis.py``)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -153,8 +156,8 @@ def _write_owned_slot(c, slot: int, new) -> None:
 
     def write(cl, nl):
         lo = rank * cl.shape[1] if seq_on else 0
-        if lo <= slot < lo + cl.shape[1]:
-            cl[:, slot - lo] = nl[:, 0]
+        j = min(max(slot - lo, 0), cl.shape[1] - 1)
+        cl[:, j] = nl[:, 0] if lo <= slot < lo + cl.shape[1] else cl[:, j].clone()
         return cl
 
     local_map(write, out_placements=list(c.placements), in_placements=(c.placements, new_pl),

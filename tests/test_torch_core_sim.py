@@ -3,8 +3,9 @@ isu, icu, simulator) against the JAX package's ``repro.core``, field for
 field and exactly: the same programs (the port's pipeline plans, and the
 paper's Fig. 3 two-PU programs, each encoded in one package and decoded in
 the other) give the same end cycle, tokens, rounds, deadlock verdict,
-member latencies, per-PU group statistics and blocked processes. The fault
-hooks of the copy raise until the fault package is copied."""
+member latencies, per-PU group statistics and blocked processes. The copy
+of ``core/demo.py`` builds the Fig. 3 programs word for word, and the fault
+hooks (``inject``, ``clear_faults``, ``run(watchdog=...)``) run as JAX's."""
 import dataclasses
 
 import pytest
@@ -12,9 +13,10 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")  # the machine with the card has no JAX
 
-from repro import core as jcore  # noqa: E402
-from repro.core.demo import GemmShape, build_two_pu_pipeline  # noqa: E402
-from repro_torch import core  # noqa: E402
+from repro import core as jcore, faults as jfaults  # noqa: E402
+from repro.core import demo as jdemo  # noqa: E402
+from repro_torch import core, faults  # noqa: E402
+from repro_torch.core.demo import GemmShape, build_two_pu_pipeline  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.runtime import pipeline as pp  # noqa: E402
 
@@ -73,13 +75,39 @@ def test_pipeline_plans_simulate_equal(arch, S, M):
     assert got.tokens_sent == sends
 
 
+def _jshape(s):
+    return jdemo.GemmShape(m=s.m, n=s.n, k=s.k)
+
+
+@pytest.mark.parametrize("case", sorted(FIG3))
+def test_fig3_two_pu_programs_equal_jax(case):
+    """The copy of ``core/demo.py`` builds JAX's Fig. 3 programs word for
+    word (the default regions and channels, and others), with the same
+    shapes' byte counts."""
+    pid_a, pid_b, a, b = FIG3[case]
+    for kw in ({}, {"n_io_regions": 2, "a_region_base": 0x100_0000, "chan_a": 5,
+                    "chan_b_w": 6, "chan_b_r": 7, "chan_c": 8}):
+        got = build_two_pu_pipeline(pid_a, pid_b, a, b, rounds=ROUNDS, **kw)
+        want = jdemo.build_two_pu_pipeline(pid_a, pid_b, _jshape(a), _jshape(b), rounds=ROUNDS,
+                                           **kw)
+        assert [(p.pid, p.label, p.encode(), [(g.name, g.group.value)
+                                               for g in (p.ld, p.cp, p.st)]) for p in got] == \
+            [(p.pid, p.label, p.encode(), [(g.name, g.group.value)
+                                           for g in (p.ld, p.cp, p.st)]) for p in want]
+    for s in (a, b):
+        assert (s.in_bytes, s.out_bytes) == (_jshape(s).in_bytes, _jshape(s).out_bytes)
+    assert not hasattr(core, "build_two_pu_pipeline")  # not re-exported, as in JAX
+    assert not hasattr(jcore, "build_two_pu_pipeline")
+
+
 @pytest.mark.parametrize("case", sorted(FIG3))
 def test_fig3_two_pu_programs_simulate_equal(case):
-    """The Fig. 3 programs of ``repro.core.demo`` on the default U50 system."""
+    """The Fig. 3 programs of the port's ``core/demo.py`` on the default U50
+    system, and JAX's on JAX's."""
     pid_a, pid_b, a, b = FIG3[case]
-    programs = build_two_pu_pipeline(pid_a, pid_b, a, b, rounds=ROUNDS)
-    got = core.simulate([_convert(p, core) for p in programs])
-    want = jcore.simulate(programs)
+    got = core.simulate(build_two_pu_pipeline(pid_a, pid_b, a, b, rounds=ROUNDS))
+    want = jcore.simulate(jdemo.build_two_pu_pipeline(pid_a, pid_b, _jshape(a), _jshape(b),
+                                                      rounds=ROUNDS))
     _assert_same(got, want)
     assert got.tokens_sent == 2 * ROUNDS + 2 and not got.deadlocked
 
@@ -128,13 +156,29 @@ def test_reset_switches_programs_on_the_same_machine():
 
 
 def test_fault_hooks_raise_until_the_fault_package_is_copied():
-    sim = core.MultiPUSimulator()
-    programs = [_convert(p, core) for p in build_two_pu_pipeline(0, 1, SHAPE, SHAPE, rounds=2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        sim.inject(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+    """Formerly the refusal of ``inject`` / ``clear_faults`` /
+    ``run(watchdog=...)``; the fault package is copied now, so the hooks run
+    and are held to JAX's: a PU hang at cycle 2000 on the consumer of the
+    Fig. 3 pipeline, caught by the watchdog, re-armed by ``reset``, gone
+    after ``clear_faults``."""
+    def go(c, f, programs):
+        sim = c.MultiPUSimulator()
+        sim.inject(f.FaultSchedule(faults=(f.PUHang(pid=1, at_cycle=2000.0),)))
+        faulted = sim.run(programs(), watchdog=f.Watchdog())
+        log = [(t, d) for t, d in sim.injector.log]
+        sim.reset()  # the schedule re-arms on the fresh run state
+        again = sim.run(programs(), watchdog=f.Watchdog())
         sim.clear_faults()
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        sim.run(programs, watchdog=object())
-    res = sim.run(programs)  # the refusals left the simulator as it was
-    assert not res.deadlocked and res.rounds == 2 and res.faults == []
+        clean = sim.run(programs(), watchdog=f.Watchdog())
+        return faulted, again, clean, log, [[str(r) for r in x.faults]
+                                            for x in (faulted, again, clean)]
+
+    got = go(core, faults, lambda: build_two_pu_pipeline(0, 1, SHAPE, SHAPE, rounds=2))
+    want = go(jcore, jfaults, lambda: jdemo.build_two_pu_pipeline(
+        0, 1, _jshape(SHAPE), _jshape(SHAPE), rounds=2))
+    for g, w in zip(got[:3], want[:3]):
+        _assert_same(g, w)
+    assert got[3:] == want[3:]
+    faulted, again, clean, _, reports = got
+    assert reports[0] == reports[1] and any("fault-pu-hang" in r for r in reports[0])
+    assert not clean.faults and not clean.deadlocked and clean.rounds == 2

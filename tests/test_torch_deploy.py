@@ -291,16 +291,28 @@ def test_tuple_strategy_warns_at_the_caller():
 
 
 def test_fault_hooks_raise_naming_item_16_before_any_work():
-    system = td.System()
-    dep = td.compile_deployment(tc.zoo.tiny_cnn(), td.Strategy.single(1, 1), rounds=2)
-    system.load(dep)
-    for call in (lambda: system.inject(object()), system.clear_faults):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
-    assert system.watchdog is None and system.history == []
-    _assert_same_run(system.run(),
-                     jd.System().load(jd.compile_deployment(
-                         jc.zoo.tiny_cnn(), jd.Strategy.single(1, 1), rounds=2)).run())
+    """Formerly the refusal of ``System.inject`` / ``clear_faults``; the
+    fault package is copied now, so both run and are held to JAX's: a
+    watched run with a token drop from the first stage, then a clean run
+    after ``clear_faults``, field for field with the same reports."""
+    from repro import faults as jf
+    from repro_torch import faults as tf
+
+    def go(c, d, f):
+        system = d.System()
+        system.watchdog = f.Watchdog()
+        dep = d.compile_deployment(c.zoo.tiny_cnn(), d.Strategy.single(1, 1), rounds=2)
+        system.load(dep)
+        system.inject(f.FaultSchedule(faults=(f.TokenDrop(src_pid=dep.members[0].first_pid),)))
+        faulted = system.run()
+        system.clear_faults()
+        return faulted, system.run(), [str(r) for r in faulted.faults]
+
+    got, want = go(tc, td, tf), go(jc, jd, jf)
+    _assert_same_run(got[0], want[0])
+    _assert_same_run(got[1], want[1])
+    assert got[2] == want[2] and got[2] and "fault-sync-timeout" in " ".join(got[2])
+    assert not got[1].faulted and got[1].rounds == 2
 
 
 def test_exports_match_jax():

@@ -4,8 +4,9 @@ subprocess on the CPU at reduced size: ``serve_llm`` drains its requests;
 params, and trains the recurrent configs (rwkv6-7b, zamba2-7b) too;
 ``pipeline_parallel`` runs its four steps, the ranks over gloo; the DSE and
 deployment twins (``quickstart``, ``resnet50_dse``, ``transformer_dse``,
-``multi_tenant``, ``decode_serving``) print the JAX examples' lines on the
-same arguments, each pair run side by side."""
+``multi_tenant``, ``decode_serving``) and the serving twins
+(``online_serving``, ``fault_tolerant_serving``) print the JAX examples'
+lines on the same arguments, each pair run side by side."""
 import math
 import os
 import re
@@ -133,3 +134,16 @@ def test_multi_tenant_twin_prints_the_jax_lines():
 def test_decode_serving_twin_prints_the_jax_lines():
     out = _run_twins("decode_serving", "--small")
     assert "switched back to prefill" in out and "deadlock=True" not in out
+
+
+def test_online_serving_twin_prints_the_jax_lines():
+    out = _run_twins("online_serving", "--small")
+    done, total = map(int, re.search(r"(\d+)/(\d+) requests completed", out).groups())
+    assert done == total == 5 and "0 reconfigurations" in out
+
+
+def test_fault_tolerant_serving_twin_prints_the_jax_lines():
+    out = _run_twins("fault_tolerant_serving", "--small")
+    target = re.search(r"injecting a hang at pu(\d+)", out).group(1)
+    assert f"quarantined PUs: [{target}]" in out and "fault-pu-hang" in out
+    assert re.search(r"(\d+)/\1 requests completed", out)

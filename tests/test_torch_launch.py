@@ -5,9 +5,11 @@ subprocess (the fake process group of 256 ranks is process-wide), a dry-run
 cell of reduced qwen3-0.6b on the fake 16 x 16 mesh with the local-shard
 FLOP count checked against ``FlopCounterMode`` on plain tensors of the
 local shapes, the kernels' shape-only work, the collectives against
-``CommDebugMode``, and a DTensor refused by the CUDA wrappers; and
+``CommDebugMode``, a DTensor refused by the CUDA wrappers, and the output
+bytes of a decode cell (the slots written in place) and a train cell; and
 ``tools/sharded_cards.py --cpu`` (its 4 ranks spawned on the CPU)."""
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,6 +92,25 @@ out = {}
 cfg = get_config("qwen3-0.6b").reduced()
 cell = dryrun.run_cell("qwen3-0.6b", "prefill_32k", cfg=cfg, verbose=False)
 out["cell"] = asdict(cell)
+
+# in-place outputs: every output leaf's local bytes (the count before
+# aliasing was taken into account) beside the cell's output_bytes
+from dataclasses import replace
+from repro_torch.tree import tree_leaves
+seen = {}
+count_out = flop_analysis.output_bytes
+def spy(step_out, args, writes):
+    seen["whole"] = flop_analysis.local_bytes(step_out)
+    local = [getattr(x, "to_local", lambda: x)() for x in tree_leaves(step_out)]
+    seen["leaves"] = [[list(x.shape), x.element_size()] for x in local]
+    return count_out(step_out, args, writes)
+flop_analysis.output_bytes = spy
+two = replace(cfg, num_layers=2)
+for shape in ("decode_32k", "train_4k"):
+    c = dryrun.run_cell("qwen3-0.6b", shape, cfg=two, verbose=False)
+    out[shape] = {"status": c.status, "reason": c.reason, "output_bytes": c.output_bytes,
+                  "hbm_bytes": c.hbm_bytes, "arg_bytes": c.arg_bytes, **seen}
+flop_analysis.output_bytes = count_out
 
 # a column-parallel product on the 16 x 16 mesh: the local count and the
 # global one FlopCounterMode gives above DTensor
@@ -193,6 +214,56 @@ def test_dryrun_cell_collectives(cell):
     assert c["collective_by_type"].get("all-gather", 0) > 0
     assert c["collective_by_type"].get("all-reduce", 0) > 0
     assert c["collective_wire_bytes"] > 0
+
+
+def test_decode_cell_counts_the_written_slots(cell):
+    """A decode step writes one k/v slot a layer into the cache it was given
+    (in place), so the cell counts the logits plus those slots, not the
+    whole local cache: every rank writes one slot a layer (the owner its new
+    k/v, the others one of their own, as XLA's SPMD partitioner lowers the
+    update)."""
+    c = cell["decode_32k"]
+    assert c["status"] == "ok", c["reason"]
+    (logits, lsize), *caches = c["leaves"]
+    assert len(caches) == 2  # k and v, two layers each: (2, b, t, g, q)
+    slots = 0
+    for shape, size in caches:
+        n_layers, b, t, g, q = shape
+        assert n_layers == 2 and t == 32768 // 16  # sequence split over "model"
+        slots += n_layers * b * g * q * size
+    assert c["output_bytes"] == math.prod(logits) * lsize + slots
+    assert c["whole"] > 100 * c["output_bytes"]  # the old count: the whole cache
+    assert c["hbm_bytes"] == c["arg_bytes"] + c["output_bytes"]
+
+
+def test_train_cell_output_bytes_unchanged(cell):
+    """A train step returns new params and optimizer state (none written in
+    place): every output counts whole, as before the in-place accounting."""
+    c = cell["train_4k"]
+    assert c["status"] == "ok", c["reason"]
+    assert c["output_bytes"] == c["whole"] > 0
+
+
+def test_in_place_writes_counted_by_storage():
+    """``LocalCounter`` records what each in-place op writes, by storage: a
+    copy into a view its view, an indexed write its update's elements; an
+    output aliasing an argument counts those bytes once, at most its size,
+    a new output whole, an untouched argument returned as is nothing."""
+    from repro_torch.launch import flop_analysis as fa
+
+    cache, state, keep = torch.zeros(2, 16, 4), torch.zeros(3, 8), torch.zeros(5)
+    with fa.analyze() as counts:
+        cache[:, 3] = torch.ones(2, 4)                            # copy_ into a view: 8 floats
+        cache.index_put_((torch.tensor([0, 1]), torch.tensor([5, 6])), torch.ones(2, 4))  # 8
+        state.copy_(torch.ones(3, 8))                             # whole: 24 floats
+        state.mul_(2.0)                                           # whole again: 24
+        new = cache.sum(1)
+    assert counts.writes[fa.storage_key(cache[:, 0])] == 4 * 16
+    assert counts.writes[fa.storage_key(state)] == 4 * 48
+    args = (cache, state, keep)
+    assert fa.output_bytes((new, cache, cache[0], state, keep), args, counts.writes) == \
+        new.numel() * 4 + 4 * 16 + state.numel() * 4 + 0
+    assert fa.output_bytes((new,), args, counts.writes) == fa.local_bytes(new)
 
 
 def test_dtensor_refused_by_wrapper(cell):
