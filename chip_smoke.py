@@ -302,6 +302,11 @@ TRAIN_TOL, TRAIN_PLAIN_GRAD_TOL = 1e-5, 1e-4
 SHARDED_ARCH = ARCH
 SHARDED_TOL = 1e-5
 DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k"), ("dbrx-132b", "train_4k"))
+# the dry run's peak of live bytes is a lower bound on the allocator's peak:
+# at most TEMP_TOL above it on the unsharded prefill, and at least
+# TEMP_FLOOR of it, so that storages forgotten while still alive show
+TEMP_TOL = 0.05
+TEMP_FLOOR = 0.9
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -2057,7 +2062,10 @@ def drive_sharded(kernel_mods, report) -> dict:
     a. the unsharded port first, on the same weights and tokens: a prefill
        of PREFILL_BATCH x PREFILL_LEN, CONSISTENCY_LEN decode steps of the
        batch's first tokens, one train step (AdamW, remat) of TRAIN_BATCH x
-       TRAIN_LEN tokens of the token stream;
+       TRAIN_LEN tokens of the token stream; the prefill counted by
+       ``flop_analysis.analyze``, its peak of live bytes held against the
+       allocator's peak above the bytes held before it (the count is a lower
+       bound: at most TEMP_TOL above, and at least TEMP_FLOOR of it);
     b. the same three sharded, with every launch count set to 0 just before
        and read just after: flash attention once a layer in the prefill,
        twice a layer in the step (remat), never in decode (plain einsums);
@@ -2067,15 +2075,17 @@ def drive_sharded(kernel_mods, report) -> dict:
     c. one-rank overhead: (a)'s and (b)'s prefill and decode step timed warm
        with CUDA events, one after the other;
     d. the dry run (``repro_torch.launch.dryrun``) of DRYRUN_CELLS on a fake
-       16 x 16 mesh on this host: per-device bytes, FLOPs, collective bytes
-       and the roofline terms on H100 constants.
+       16 x 16 mesh on this host: per-device bytes (arguments, every op's
+       output, the peak of live bytes), FLOPs by phase, collective bytes by
+       tier, the top ops and collectives, and the roofline terms on H100
+       constants.
     Returns the counts of (b)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch._device import batch_on_device
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, flop_analysis
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import train
     from repro_torch.runtime.data import DataConfig, TokenStream
@@ -2094,17 +2104,33 @@ def drive_sharded(kernel_mods, report) -> dict:
         seed=SEED)).next(), torch.device("cuda"))
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
 
-    def serve(pre, step, p, cache):
-        logits = pre(p, {"tokens": tokens})
+    def serve(pre, step, p, cache, logits=None):
+        logits = pre(p, {"tokens": tokens}) if logits is None else logits
         dec = []
         for t in range(n):
             lg, cache = step(p, cache, {"tokens": tokens[:, t:t + 1]}, t)
             dec.append(lg[:, 0])
         return logits, torch.stack(dec, 1)
 
-    # a. unsharded
+    # a. unsharded; the prefill's live bytes against the allocator's peak
     pre0, step0 = make_prefill(cfg), make_serve_step(cfg)
-    want, want_dec = serve(pre0, step0, params, tf.init_cache(cfg, b, n, torch.float32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with flop_analysis.analyze() as pc:
+        first = pre0(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - held
+    report(f"{SHARDED_ARCH} unsharded prefill {b} x {s}: counted peak of live bytes "
+           f"{pc.temp_bytes} B (flop_analysis), allocator peak above the {held} B held "
+           f"before {measured} B ({pc.temp_bytes / measured:.4f} of it); counted "
+           f"{pc.flops:.6e} FLOPs, {pc.op_output_bytes:.6e} B of op outputs")
+    if not TEMP_FLOOR * measured <= pc.temp_bytes <= (1 + TEMP_TOL) * measured:
+        raise AssertionError(f"counted live bytes {pc.temp_bytes} not within "
+                             f"[{TEMP_FLOOR}, {1 + TEMP_TOL}] of the allocator's peak {measured}")
+    want, want_dec = serve(pre0, step0, params, tf.init_cache(cfg, b, n, torch.float32),
+                           first)
+    del first
     _, _, met0 = train.make_train_step(cfg, opt_cfg)(params, adamw_init(opt_cfg, params), batch)
     met0 = {k: float(v) for k, v in met0.items()}
     gc.collect()
@@ -2190,9 +2216,24 @@ def drive_sharded(kernel_mods, report) -> dict:
         cell = dryrun.run_cell(arch, shape)
         if cell.status != "ok":
             raise AssertionError(f"dry run {arch} x {shape}: {cell.status} {cell.reason}")
-        keys = ("arg_bytes", "output_bytes", "flops", "hbm_bytes", "collective_wire_bytes",
+        keys = ("arg_bytes", "output_bytes", "op_output_bytes", "temp_bytes", "flops",
+                "flops_by_phase", "hbm_bytes", "collective_wire_bytes",
+                "collective_wire_bytes_nvlink", "collective_wire_bytes_network",
                 "collective_by_type", "n_collectives", "t_compute", "t_memory", "t_collective",
-                "bottleneck", "model_flops_per_chip", "useful_ratio", "kernels")
+                "bottleneck", "model_flops_per_chip", "useful_ratio", "kernels",
+                "top_hbm_ops", "top_flop_ops", "top_collectives")
+        t_tiers = (cell.collective_wire_bytes_nvlink / dryrun.LINK_BW
+                   + cell.collective_wire_bytes_network / dryrun.NET_BW)
+        if not (cell.hbm_bytes == cell.arg_bytes + cell.op_output_bytes
+                and cell.op_output_bytes >= cell.output_bytes and cell.temp_bytes > 0
+                and abs(cell.t_collective - t_tiers) <= 1e-9 * t_tiers
+                and cell.n_collectives == cell.n_collectives_comm_debug):
+            raise AssertionError(f"dry run {arch} x {shape}: hbm {cell.hbm_bytes} != args "
+                                 f"{cell.arg_bytes} + op outputs {cell.op_output_bytes}, or "
+                                 f"op outputs below output {cell.output_bytes}, or temp "
+                                 f"{cell.temp_bytes}, or t_collective {cell.t_collective} != "
+                                 f"its tiers' {t_tiers}, or {cell.n_collectives} collectives "
+                                 f"against CommDebugMode's {cell.n_collectives_comm_debug}")
         report(f"dryrun {arch} x {shape} on {cell.mesh}, per device: "
                f"{json.dumps({k: getattr(cell, k) for k in keys})} ({time.time() - t0:.1f} s on "
                f"the host; {cell.link})")

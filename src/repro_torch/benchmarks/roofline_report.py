@@ -40,7 +40,8 @@ def run(path: str = DEFAULT) -> list[str]:
             f"t_memory_ms={c['t_memory']*1e3:.2f};"
             f"t_collective_ms={c['t_collective']*1e3:.2f};"
             f"bottleneck={c['bottleneck']};useful={c['useful_ratio']:.2f};"
-            f"args_gib={c['arg_bytes']/2**30:.2f};out_gib={c['output_bytes']/2**30:.2f}"
+            f"args_gib={c['arg_bytes']/2**30:.2f};temp_gib={c['temp_bytes']/2**30:.2f};"
+            f"out_gib={c['output_bytes']/2**30:.2f}"
         )
     ok = [c for c in cells if c["status"] == "ok"]
     if ok:

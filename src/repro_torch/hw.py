@@ -18,6 +18,11 @@ HBM_CAPACITY_BYTES = 80e9
 # Every card of one HGX board (8 cards) reaches every other at this rate
 # through the NVSwitches, so one rate holds within those 8 cards.
 NVLINK_BYTES_PER_S = 450e9
+BOARD_CARDS = 8  # cards of one NVLink board (an HGX H100 8-GPU board, a DGX H100)
+# Off its board a card reaches the others over the cluster network: in a DGX
+# H100 (NVIDIA DGX H100 data sheet and user guide) each card has one
+# ConnectX-7 port of 400 Gb/s NDR InfiniBand, 50 GB/s in each direction.
+NETWORK_BYTES_PER_S = 50e9
 # Usable bytes a card for a deployment's weights and activations: 80 GB less
 # 2 GB (the same margin as the v5e's 14 GB of 16): a CUDA context holds
 # ~0.5 GB (PERF.md: the pipeline run across four ranks), and the rest is left to NCCL's

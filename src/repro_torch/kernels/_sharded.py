@@ -12,8 +12,9 @@ DTensor ever reaches a ``*_cuda`` wrapper: ``refuse_wrapped`` raises there.
 
 A FakeTensor (``launch/dryrun.py``) never reaches ctypes or a plain
 version's loops: ``ShapeOnly`` returns empty outputs of the right
-shapes and records the kernel's operations and bytes, by the formulas of
-the kernels' bounds, into the collectors ``counting`` installs.
+shapes and tells the watchers ``watching`` installs of each call: the
+kernel's operations and bytes, by the formulas of the kernels' bounds, and
+what it writes (its outputs).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-_COLLECTORS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
-    "repro_torch_kernel_collectors", default=())
+_WATCHERS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "repro_torch_kernel_watchers", default=())
 
 # a shape-only backward is counted as this many forwards (FlashAttention-2's
 # convention for attention, five products for two; the recurrences' reverse
@@ -66,23 +67,21 @@ def refuse_wrapped(name: str, *xs) -> None:
 
 # ------------------------------------------------------------- accounting --
 @contextlib.contextmanager
-def counting():
-    """Collect the shape-only kernel calls of the enclosed code:
-    ``{name: {"calls", "flops", "bytes"}}``, per device (local shapes)."""
-    got: dict = {}
-    tok = _COLLECTORS.set(_COLLECTORS.get() + (got,))
+def watching(fn: Callable[[str, float, float, int], None]):
+    """Call ``fn(name, flops, n_bytes, out_bytes)`` at each shape-only
+    kernel call of the enclosed code, per device (local shapes): its
+    operations and bytes moved, and what it writes (its outputs)."""
+    tok = _WATCHERS.set(_WATCHERS.get() + (fn,))
     try:
-        yield got
+        yield
     finally:
-        _COLLECTORS.reset(tok)
+        _WATCHERS.reset(tok)
 
 
-def _record(name: str, flops: float, n_bytes: float) -> None:
-    for got in _COLLECTORS.get():
-        row = got.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
-        row["calls"] += 1
-        row["flops"] += flops
-        row["bytes"] += n_bytes
+def _record(name: str, flops: float, n_bytes: float, outs: Sequence = ()) -> None:
+    out_bytes = sum(o.numel() * o.element_size() for o in outs)
+    for fn in _WATCHERS.get():
+        fn(name, flops, n_bytes, out_bytes)
 
 
 class ShapeOnly(torch.autograd.Function):
@@ -95,17 +94,18 @@ class ShapeOnly(torch.autograd.Function):
         ctx.name, ctx.cost = name, (flops, n_bytes)
         ctx.shapes = [(x.shape, x.dtype) if isinstance(x, torch.Tensor) else None
                       for x in inputs]
-        _record(name, flops, n_bytes)
         made = tuple(torch.empty_like(o) for o in outs)
+        _record(name, flops, n_bytes, made)
         return made if len(made) > 1 else made[0]
 
     @staticmethod
     def backward(ctx, *grads):
         f = BACKWARD_FACTOR[ctx.name]
-        _record(ctx.name + ".backward", f * ctx.cost[0], f * ctx.cost[1])
         ref = next(g for g in grads if g is not None)
-        return (None, None, None, None, *(
-            None if s is None else ref.new_empty(s[0], dtype=s[1]) for s in ctx.shapes))
+        made = [None if s is None else ref.new_empty(s[0], dtype=s[1]) for s in ctx.shapes]
+        _record(ctx.name + ".backward", f * ctx.cost[0], f * ctx.cost[1],
+                [g for g in made if g is not None])
+        return (None, None, None, None, *made)
 
 
 def shape_only(name: str, flops: float, n_bytes: float, outs: Sequence[torch.Tensor],

@@ -13,10 +13,11 @@ cell's ``ShardingPolicy``, and the step runs as a user runs it
 kernels' shape-only work, and every collective DTensor issues.
 
 The roofline denominators are the H100's (``repro_torch/hw.py``): bf16
-tensor cores 989 TFLOP/s, HBM3 3.35 TB/s, NVLink 450 GB/s a direction. The
-collective term assumes every collective runs at the NVLink rate; a
-"model" axis of 16 spans two 8-card NVLink domains, so its collectives
-partly cross the boards' network and the term is a lower bound.
+tensor cores 989 TFLOP/s, HBM3 3.35 TB/s, NVLink 450 GB/s a direction
+within an 8-card board and the network's 50 GB/s a direction off it. The
+memory term reads the step's arguments once plus every op's output
+(``flop_analysis``); the collective term times each collective at its
+group's tier (``LINK_NOTE``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
@@ -46,9 +47,12 @@ from .mesh import fake_world, make_production_mesh, production_shape
 
 PEAK_FLOPS = hw.BF16_TENSOR_FLOPS  # bf16 a card
 HBM_BW = hw.HBM_BYTES_PER_S  # bytes/s a card
-LINK_BW = hw.NVLINK_BYTES_PER_S  # bytes/s a card, one direction
-LINK_NOTE = ("collective term at NVLink 450 GB/s a direction for every collective; a 'model' "
-             "axis of 16 spans two 8-card NVLink domains, so this is a lower bound")
+LINK_BW = hw.NVLINK_BYTES_PER_S  # bytes/s a card, one direction, within a board
+NET_BW = hw.NETWORK_BYTES_PER_S  # bytes/s a card, one direction, off the board
+LINK_NOTE = ("collective term: each collective as a flat ring paced by its slowest hop, at "
+             "NVLink 450 GB/s where its group lies on one 8-card board and at the network's "
+             "50 GB/s where it spans boards; no credit for NCCL's hierarchical or NVLS "
+             "algorithms, so an estimate, not a bound")
 
 SHAPES = {s.name: s for s in LM_SHAPES}
 
@@ -65,7 +69,8 @@ class CellResult:
     # writes into its outputs (an argument written in place: the bytes written)
     arg_bytes: int = 0
     output_bytes: int = 0
-    temp_bytes: int = 0  # not measured (no allocator runs)
+    temp_bytes: int = 0  # peak live bytes of the storages the step made
+    op_output_bytes: float = 0.0  # every op's output once (hbm_bytes less arg_bytes)
     # JAX's cost_analysis numbers: no counterpart, left 0
     xla_flops: float = 0.0
     xla_bytes: float = 0.0
@@ -73,6 +78,8 @@ class CellResult:
     flops: float = 0.0
     hbm_bytes: float = 0.0
     collective_wire_bytes: float = 0.0
+    collective_wire_bytes_nvlink: float = 0.0
+    collective_wire_bytes_network: float = 0.0
     collective_by_type: dict = field(default_factory=dict)
     n_collectives: int = 0
     n_collectives_comm_debug: int = 0  # CommDebugMode's count of the same run
@@ -85,6 +92,11 @@ class CellResult:
     model_flops_per_chip: float = 0.0
     useful_ratio: float = 0.0
     kernels: dict = field(default_factory=dict)
+    flops_by_op: dict = field(default_factory=dict)
+    flops_by_phase: dict = field(default_factory=dict)  # forward | backward | recompute
+    top_hbm_ops: list = field(default_factory=list)
+    top_flop_ops: list = field(default_factory=list)
+    top_collectives: list = field(default_factory=list)
     link: str = LINK_NOTE
 
 
@@ -127,6 +139,8 @@ def _build_step(cfg: ArchConfig, shape: ShapeCfg, policy):
 
 def _trace(cfg, shape, policy):
     """Run the cell's step once: (counts, argument bytes, output bytes).
+    ``counts`` holds the bytes of every op's output and the step's peak live
+    bytes (``flop_analysis.analyze``).
     An output the step wrote in place into an argument (a decode step's
     cache) counts the bytes written (``flop_analysis.output_bytes``).
 
@@ -184,16 +198,26 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: bo
     res.compile_s = time.time() - t0
 
     res.flops = counts.flops
-    res.hbm_bytes = float(res.arg_bytes + res.output_bytes)
+    res.op_output_bytes = counts.op_output_bytes
+    res.hbm_bytes = res.arg_bytes + counts.op_output_bytes
+    res.temp_bytes = counts.temp_bytes
     res.collective_wire_bytes = counts.collective_wire_bytes
+    res.collective_wire_bytes_nvlink = counts.collective_wire_bytes_nvlink
+    res.collective_wire_bytes_network = counts.collective_wire_bytes_network
     res.collective_by_type = dict(counts.collective_bytes_by_type)
     res.n_collectives = counts.collective_ops
     res.n_collectives_comm_debug = counts.comm_debug_ops
     res.kernels = counts.kernels
+    res.flops_by_op = counts.flops_by_op
+    res.flops_by_phase = counts.flops_by_phase
+    res.top_hbm_ops = counts.top_hbm_ops
+    res.top_flop_ops = counts.top_flop_ops
+    res.top_collectives = counts.top_collectives
 
     res.t_compute = res.flops / PEAK_FLOPS
     res.t_memory = res.hbm_bytes / HBM_BW
-    res.t_collective = res.collective_wire_bytes / LINK_BW
+    res.t_collective = (res.collective_wire_bytes_nvlink / LINK_BW
+                        + res.collective_wire_bytes_network / NET_BW)
     terms = {"compute": res.t_compute, "memory": res.t_memory,
              "collective": res.t_collective}
     res.bottleneck = max(terms, key=terms.get)
@@ -203,12 +227,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: bo
     if verbose:
         print(
             f"[{mesh_name}] {arch} x {shape_name}: trace {res.compile_s:.1f}s | "
-            f"args {res.arg_bytes / 2**30:.2f} GiB out {res.output_bytes / 2**30:.2f} GiB | "
+            f"args {res.arg_bytes / 2**30:.2f} GiB out {res.output_bytes / 2**30:.2f} GiB "
+            f"temp {res.temp_bytes / 2**30:.2f} GiB | "
             f"flops/chip {res.flops:.3e} | hbm {res.hbm_bytes:.3e} B | "
-            f"wire {res.collective_wire_bytes:.3e} B in {res.n_collectives} collectives | "
-            f"terms c/m/x = {res.t_compute * 1e3:.2f}/{res.t_memory * 1e3:.2f}/"
+            f"wire {res.collective_wire_bytes_nvlink:.3e} B nvlink + "
+            f"{res.collective_wire_bytes_network:.3e} B network in {res.n_collectives} "
+            f"collectives | terms c/m/x = {res.t_compute * 1e3:.2f}/{res.t_memory * 1e3:.2f}/"
             f"{res.t_collective * 1e3:.2f} ms -> {res.bottleneck} | "
-            f"useful {res.useful_ratio:.2f} | {LINK_NOTE}"
+            f"useful {res.useful_ratio:.2f}"
         )
     return res
 

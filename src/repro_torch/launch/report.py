@@ -4,7 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.report dryrun.json
 
 ``compile_s`` is the host's seconds to trace the step here (JAX's: to
-compile it); ``temp/chip`` is not measured by the port's dry run (0).
+compile it); ``temp/chip`` is the step's peak of live bytes a device
+(``flop_analysis``: a lower bound on the allocator's peak).
 """
 from __future__ import annotations
 

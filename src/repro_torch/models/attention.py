@@ -185,5 +185,5 @@ def _sharded_decode(q, ck, cv, last: int, G: int):
     scores = scores.masked_fill(~valid, -1e30)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = (e / e.sum(dim=-1, keepdim=True)).to(cv.dtype)
-    probs = probs.reshape(b, G, H // G, 1, cache_len)
+    probs = fit_split(probs, 1, G).reshape(b, G, H // G, 1, cache_len)
     return torch.einsum("bgrut,btgq->bugrq", probs, cv).reshape(b, 1, H, hd)

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..runtime.pspec import constrain, fit_split, rows_grad, whole_rows
+from ..runtime.pspec import constrain, fit_split, fit_sum, rows_grad, whole_rows
 from .layers import act_fn, normal
 
 
@@ -89,6 +89,7 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
         h = act_fn(cfg.act)(h)
     h = constrain(h, "moe_hidden")
     ye = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(wdt))
+    ye = fit_sum(ye, C)  # the combine contracts (e, c) and flattens them
     y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
 
     # load-balancing loss (Switch): E * sum_e f_e * P_e, f from the top-1 choice

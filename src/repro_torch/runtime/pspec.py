@@ -122,6 +122,30 @@ def settled(x):
     return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
 
 
+def fit_sum(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` ready for a product that contracts a dimension of size ``n``
+    and keeps the last: a pending sum (Partial) on a mesh dimension whose
+    size does not divide ``n`` is reduced onto a split of the last dimension
+    (a reduce-scatter) where no mesh dimension splits it yet and its size
+    divides, else whole (an all-reduce of the local shard). DTensor would
+    scatter the sum over the contracted dimension, which the product's view
+    then cannot flatten (an MoE decode step's capacity of 40 over 16 ranks).
+    Anything but a DTensor, or one whose sums divide ``n``, is returned as
+    it is."""
+    if not is_sharded(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    free = not any(isinstance(p, Shard) and p.dim == last for p in x.placements)
+    want = list(x.placements)
+    for i, p in enumerate(want):
+        if p.is_partial() and n % mesh.size(i):
+            fits = free and x.shape[last] % mesh.size(i) == 0
+            want[i], free = (Shard(last), False) if fits else (Replicate(), free)
+    return x if want == list(x.placements) else x.redistribute(mesh, tuple(want))
+
+
 class _FitGrad(torch.autograd.Function):
     """Identity forward; ``fit_split`` of the gradient backward."""
 

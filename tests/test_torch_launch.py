@@ -6,8 +6,11 @@ cell of reduced qwen3-0.6b on the fake 16 x 16 mesh with the local-shard
 FLOP count checked against ``FlopCounterMode`` on plain tensors of the
 local shapes, the kernels' shape-only work, the collectives against
 ``CommDebugMode``, a DTensor refused by the CUDA wrappers, and the output
-bytes of a decode cell (the slots written in place) and a train cell; and
-``tools/sharded_cards.py --cpu`` (its 4 ranks spawned on the CPU)."""
+bytes of a decode cell (the slots written in place) and a train cell, the
+memory term, temp bytes, an all-to-all, the collective tiers and the
+cells the full grid failed on; ``flop_analysis`` against
+``hlo_analysis`` on tiny functions; and ``tools/sharded_cards.py --cpu``
+(its 4 ranks spawned on the CPU)."""
 import json
 import math
 import os
@@ -80,7 +83,6 @@ import json, sys
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import get_config
-from repro_torch.kernels import _sharded
 from repro_torch.kernels.flash_attention import kernel as fa, ops as fa_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -109,8 +111,26 @@ two = replace(cfg, num_layers=2)
 for shape in ("decode_32k", "train_4k"):
     c = dryrun.run_cell("qwen3-0.6b", shape, cfg=two, verbose=False)
     out[shape] = {"status": c.status, "reason": c.reason, "output_bytes": c.output_bytes,
-                  "hbm_bytes": c.hbm_bytes, "arg_bytes": c.arg_bytes, **seen}
+                  "hbm_bytes": c.hbm_bytes, "arg_bytes": c.arg_bytes,
+                  "op_output_bytes": c.op_output_bytes, "temp_bytes": c.temp_bytes,
+                  "flops": c.flops, "flops_by_op": c.flops_by_op,
+                  "flops_by_phase": c.flops_by_phase, **seen}
 flop_analysis.output_bytes = count_out
+
+# the cells the full grid failed on, at full width and 2 layers, under the
+# policy of their full depth (fsdp): the MoE combine over a capacity of 40
+# on "model" 16 (dbrx's 16 experts, grok's 8), and danube's decode heads
+# split unevenly at batch 1
+from repro_torch.launch import dryrun as dr
+make_policy = dr.make_policy
+for arch, shape in (("dbrx-132b", "decode_32k"), ("grok-1-314b", "decode_32k"),
+                    ("h2o-danube-3-4b", "long_500k")):
+    full = get_config(arch)
+    dr.make_policy = lambda c, mesh: replace(make_policy(c, mesh),
+                                             fsdp=make_policy(full, mesh).fsdp)
+    c = dr.run_cell(arch, shape, cfg=replace(full, num_layers=2), verbose=False)
+    out[f"repaired {arch} {shape}"] = {"status": c.status, "reason": c.reason}
+dr.make_policy = make_policy
 
 # a column-parallel product on the 16 x 16 mesh: the local count and the
 # global one FlopCounterMode gives above DTensor
@@ -137,18 +157,57 @@ with fake_world(256):
     except TypeError as e:
         out["refused"] = "DTensor" in str(e)
 
+    # a Shard(0) -> Shard(1) move on "model": one all-to-all of the local
+    # input (16, 256) fp32, however the CPU mesh carries it out
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        a = distribute_tensor(torch.empty(256, 256), mesh, [Replicate(), Shard(0)],
+                              src_data_rank=None)
+    with flop_analysis.analyze() as counts:
+        b = a.redistribute(mesh, [Replicate(), Shard(1)])
+    out["alltoall"] = {k: getattr(counts, k) for k in (
+        "collective_wire_bytes", "collective_bytes_by_type", "collective_ops",
+        "comm_debug_ops", "op_output_bytes", "temp_bytes")}
+    out["alltoall"]["local"] = list(b.to_local().shape)
+
+    # the tiers: "model" (ranks 0-15, two boards) and ranks 0-7 (one board)
+    board = dist.new_group(list(range(8)))
+    with FakeTensorMode():
+        t = torch.empty(1024)
+    with flop_analysis.analyze() as counts:
+        funcol.all_reduce(t, "sum", mesh.get_group("model"))
+        funcol.all_reduce(t, "sum", board)
+    out["tiers"] = {k: getattr(counts, k) for k in (
+        "collective_wire_bytes", "collective_wire_bytes_nvlink",
+        "collective_wire_bytes_network", "top_collectives")}
+
+    # live bytes of a step whose peak is known: two local (4, 1024) fp32
+    # shards (16 KiB each) at most at once
+    def step(x):
+        y = x * 2
+        z = y * 3
+        del y
+        return z + 1
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = distribute_tensor(torch.empty(64, 1024), mesh, [Shard(0), Replicate()],
+                              src_data_rank=None)
+    with flop_analysis.analyze() as counts:
+        step(x)
+    out["temp"] = {"temp_bytes": counts.temp_bytes, "op_output_bytes": counts.op_output_bytes}
+
 # shape-only tensors through the dispatch: the right shapes, the work recorded
 with FakeTensorMode():
     q, k = torch.empty(2, 128, 4, 32), torch.empty(2, 128, 2, 32)
     r, u, st = torch.empty(2, 128, 4, 16), torch.empty(4, 16), torch.empty(2, 4, 16, 16)
     xh, dt = torch.empty(2, 128, 4, 16), torch.empty(2, 128, 4)
     A, B = torch.empty(4), torch.empty(2, 128, 8)
-    with _sharded.counting() as got:
-        o = fa_ops.flash_attention(q, k, k)
-        y6, s6 = wkv_ops.wkv6(r, r, r, r, u, st)
-        ys = ssd_ops.ssd_scan(xh, dt, A, B, B)
+with flop_analysis.analyze() as got:
+    o = fa_ops.flash_attention(q, k, k)
+    y6, s6 = wkv_ops.wkv6(r, r, r, r, u, st)
+    ys = ssd_ops.ssd_scan(xh, dt, A, B, B)
 out["shape_only"] = {"shapes": [list(o.shape), list(y6.shape), list(s6.shape), list(ys.shape)],
-                     "work": got}
+                     "work": got.kernels}
 print("RESULT " + json.dumps(out))
 """
 
@@ -198,11 +257,14 @@ def test_dryrun_cell_counts_local_shards(cell):
     p = cell["probe"]
     assert p["local"] == p["plain_local"] == 2 * 4 * 1024 * 256
     assert p["above"] == 256 * p["local"]
-    # terms on the H100 constants
+    # terms on the H100 constants: each collective at its group's tier
     assert c["t_compute"] == pytest.approx(c["flops"] / 989e12)
     assert c["t_memory"] == pytest.approx(c["hbm_bytes"] / 3.35e12)
-    assert c["t_collective"] == pytest.approx(c["collective_wire_bytes"] / 450e9)
-    assert "two 8-card NVLink domains" in c["link"]
+    assert c["collective_wire_bytes_nvlink"] + c["collective_wire_bytes_network"] == \
+        pytest.approx(c["collective_wire_bytes"])
+    assert c["t_collective"] == pytest.approx(c["collective_wire_bytes_nvlink"] / 450e9
+                                              + c["collective_wire_bytes_network"] / 50e9)
+    assert "slowest hop" in c["link"] and "8-card board" in c["link"]
 
 
 def test_dryrun_cell_collectives(cell):
@@ -233,7 +295,7 @@ def test_decode_cell_counts_the_written_slots(cell):
         slots += n_layers * b * g * q * size
     assert c["output_bytes"] == math.prod(logits) * lsize + slots
     assert c["whole"] > 100 * c["output_bytes"]  # the old count: the whole cache
-    assert c["hbm_bytes"] == c["arg_bytes"] + c["output_bytes"]
+    assert c["hbm_bytes"] == c["arg_bytes"] + c["op_output_bytes"]
 
 
 def test_train_cell_output_bytes_unchanged(cell):
@@ -266,6 +328,116 @@ def test_in_place_writes_counted_by_storage():
     assert fa.output_bytes((new,), args, counts.writes) == fa.local_bytes(new)
 
 
+@pytest.mark.parametrize("which", ["prefill_32k", "decode_32k", "train_4k"])
+def test_cell_memory_terms(cell, which):
+    """Producer-side bytes: the arguments once plus every op's output
+    (``op_output_bytes``), at or above what the step writes into its
+    outputs; a peak of live bytes; the FLOPs split by op and by phase, each
+    split summing to the total (a train step: forward, backward and the
+    remat recompute; a serving step: forward only)."""
+    c = cell["cell"] if which == "prefill_32k" else cell[which]
+    assert c["status"] == "ok", c["reason"]
+    assert c["hbm_bytes"] == c["arg_bytes"] + c["op_output_bytes"]
+    assert c["op_output_bytes"] >= c["output_bytes"] > 0
+    assert c["temp_bytes"] > 0
+    assert sum(c["flops_by_op"].values()) == pytest.approx(c["flops"], rel=1e-12)
+    assert sum(c["flops_by_phase"].values()) == pytest.approx(c["flops"], rel=1e-12)
+    phases = {"forward", "backward", "recompute"} if which == "train_4k" else {"forward"}
+    assert set(c["flops_by_phase"]) == phases
+    if which == "train_4k":
+        assert c["flops_by_op"]["flash_attention.backward"] > 0
+        assert c["flops_by_phase"]["backward"] > c["flops_by_phase"]["forward"]
+
+
+def test_alltoall_counted_as_one(cell):
+    """A Shard(0) -> Shard(1) move on "model" (16 ranks) is one all-to-all
+    of the local (16, 256) fp32 input: (n-1)/n of its 16 KiB on the wire,
+    its output once in the HBM bytes and the live bytes, however the CPU
+    mesh carries it out (an all-gather and a chunk); CommDebugMode counts
+    one collective too."""
+    a = cell["alltoall"]
+    assert a["local"] == [256, 16]
+    local = 16 * 256 * 4
+    assert a["collective_bytes_by_type"] == {"all-to-all": local}
+    assert a["collective_wire_bytes"] == 15 / 16 * local
+    assert a["collective_ops"] == a["comm_debug_ops"] == 1
+    assert a["op_output_bytes"] == a["temp_bytes"] == local
+
+
+def test_collective_tiers(cell):
+    """An all-reduce of 4 KiB over "model" (ranks 0-15, two 8-card boards)
+    is on the network tier, one over ranks 0-7 (one board) on NVLink."""
+    t = cell["tiers"]
+    assert t["collective_wire_bytes_network"] == 2 * 15 / 16 * 4096
+    assert t["collective_wire_bytes_nvlink"] == 2 * 7 / 8 * 4096
+    assert t["collective_wire_bytes"] == \
+        t["collective_wire_bytes_network"] + t["collective_wire_bytes_nvlink"]
+    assert [r["op"] for r in t["top_collectives"]] == [
+        "all-reduce float32[1024] n=16 network", "all-reduce float32[1024] n=8 nvlink"]
+
+
+def test_temp_bytes_known_peak(cell):
+    """y = x * 2, z = y * 3, y freed, z + 1 on a (4, 1024) fp32 local
+    shard: three outputs of 16 KiB written, at most two alive at once."""
+    assert cell["temp"] == {"temp_bytes": 2 * 16384, "op_output_bytes": 3 * 16384.0}
+
+
+@pytest.mark.parametrize("which", ["dbrx-132b decode_32k", "grok-1-314b decode_32k",
+                                   "h2o-danube-3-4b long_500k"])
+def test_repaired_grid_cells(cell, which):
+    """Cells the full grid failed on under torch 2.13 (full width, 2
+    layers, the policy of their full depth): the MoE combine over a
+    capacity of 40 on "model" 16 (``pspec.fit_sum``), and danube's decode
+    probabilities, its 32 heads split over "data" 16, viewed as 8 groups
+    (``pspec.fit_split``)."""
+    c = cell[f"repaired {which}"]
+    assert c == {"status": "ok", "reason": ""}
+
+
+def _hlo_counts(fn, *xs, donate=()):
+    from repro.launch import hlo_analysis
+
+    return hlo_analysis.analyze(jax.jit(fn, donate_argnums=donate).lower(*xs).compile().as_text())
+
+
+@pytest.mark.parametrize("case", ["matmul", "update", "chain"])
+def test_producer_bytes_match_hlo_analysis(case):
+    """``flop_analysis.analyze`` against ``hlo_analysis.analyze`` of the
+    compiled HLO on the same numpy inputs: a matmul's FLOPs and output
+    bytes equal; a donated cache's dynamic-update-slice counted by its
+    update on both sides; an elementwise chain at or above JAX's (XLA fuses
+    tanh(a * b + c) into one output, eager PyTorch writes three: equal
+    where XLA makes one op of one op)."""
+    import jax.numpy as jnp
+    from repro_torch.launch import flop_analysis as fa
+
+    rng = np.random.default_rng(0)
+    if case == "matmul":
+        a, b = (rng.standard_normal(s, dtype=np.float32) for s in ((64, 128), (128, 32)))
+        want = _hlo_counts(lambda x, y: x @ y, a, b)
+        with fa.analyze() as got:
+            torch.from_numpy(a) @ torch.from_numpy(b)
+        assert got.flops == want.flops == 2 * 64 * 128 * 32
+        assert got.op_output_bytes == want.hbm_bytes == 64 * 32 * 4
+    elif case == "update":
+        cache = np.zeros((2, 1024, 64), np.float32)
+        x = rng.standard_normal((2, 1, 64), dtype=np.float32)
+        want = _hlo_counts(lambda c, u: jax.lax.dynamic_update_slice(c, u, (0, 5, 0)),
+                           cache, x, donate=(0,))
+        tc, tx = torch.from_numpy(cache.copy()), torch.from_numpy(x)
+        with fa.analyze() as got:
+            tc[:, 5] = tx[:, 0]
+        assert got.op_output_bytes == want.hbm_bytes == x.nbytes
+    else:
+        a, b, c = (rng.standard_normal((256, 256), dtype=np.float32) for _ in range(3))
+        want = _hlo_counts(lambda x, y, z: jnp.tanh(x * y + z), a, b, c)
+        with fa.analyze() as got:
+            torch.tanh(torch.from_numpy(a) * torch.from_numpy(b) + torch.from_numpy(c))
+        assert want.hbm_bytes == a.nbytes
+        assert got.op_output_bytes == 3 * want.hbm_bytes >= want.hbm_bytes
+        assert got.temp_bytes == 2 * a.nbytes  # a * b, then a * b + c, then tanh
+
+
 def test_dtensor_refused_by_wrapper(cell):
     assert cell["refused"] is True
 
@@ -291,6 +463,11 @@ def test_report_and_roofline_rows(cell, tmp_path):
     rows = roofline_report.run(str(path))
     assert rows[0].startswith("roofline.16x16.qwen3-0.6b.prefill_32k,")
     assert "bottleneck=" in rows[0] and rows[-1].startswith("roofline.summary")
+    assert f"temp_gib={cell['cell']['temp_bytes'] / 2**30:.2f};" in rows[0]
+    assert f"| {report.fmt_bytes(cell['cell']['temp_bytes'])} |" in table
+    skipped = dict(cell["cell"], shape="long_500k", status="skipped", reason="no long context")
+    assert "| qwen3-0.6b | long_500k | skipped: no long context |" in report.render(
+        [cell["cell"], skipped], "16x16")
     assert roofline_report.run(str(tmp_path / "none.json"))[0].startswith("roofline.missing")
     assert np.isfinite(cell["cell"]["useful_ratio"])
 
