@@ -298,10 +298,12 @@ TRAIN_TOL, TRAIN_PLAIN_GRAD_TOL = 1e-5, 1e-4
 # a (1, 1) ("data", "model") mesh of one NCCL rank, against the unsharded
 # port on the same card: logits at SHARDED_TOL (max |diff| over max |logit|),
 # loss at TRAIN_TOL and grad norm at TRAIN_PLAIN_GRAD_TOL relative; then the
-# dry run's cells on a fake 256-rank mesh on this machine's host
+# dry run's cells on a fake 256-rank mesh on this machine's host, each
+# cell's peak of live bytes a card held to the card's memory
 SHARDED_ARCH = ARCH
 SHARDED_TOL = 1e-5
-DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k"), ("dbrx-132b", "train_4k"))
+DRYRUN_CELLS = (("qwen3-0.6b", "decode_32k"), ("dbrx-132b", "train_4k"),
+                ("qwen3-0.6b", "train_4k"))
 # the dry run's peak of live bytes is a lower bound on the allocator's peak:
 # at most TEMP_TOL above it on the unsharded prefill, and at least
 # TEMP_FLOOR of it, so that storages forgotten while still alive show
@@ -2078,11 +2080,13 @@ def drive_sharded(kernel_mods, report) -> dict:
        16 x 16 mesh on this host: per-device bytes (arguments, every op's
        output, the peak of live bytes), FLOPs by phase, collective bytes by
        tier, the top ops and collectives, and the roofline terms on H100
-       constants.
+       constants; each cell's peak of live bytes a card within the card's
+       memory (``hw.HBM_CAPACITY_BYTES``).
     Returns the counts of (b)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch import hw
     from repro_torch._device import batch_on_device
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun, flop_analysis
@@ -2221,7 +2225,7 @@ def drive_sharded(kernel_mods, report) -> dict:
                 "collective_wire_bytes_nvlink", "collective_wire_bytes_network",
                 "collective_by_type", "n_collectives", "t_compute", "t_memory", "t_collective",
                 "bottleneck", "model_flops_per_chip", "useful_ratio", "kernels",
-                "top_hbm_ops", "top_flop_ops", "top_collectives")
+                "top_hbm_ops", "top_live_ops", "top_flop_ops", "top_collectives")
         t_tiers = (cell.collective_wire_bytes_nvlink / dryrun.LINK_BW
                    + cell.collective_wire_bytes_network / dryrun.NET_BW)
         if not (cell.hbm_bytes == cell.arg_bytes + cell.op_output_bytes
@@ -2234,6 +2238,10 @@ def drive_sharded(kernel_mods, report) -> dict:
                                  f"{cell.temp_bytes}, or t_collective {cell.t_collective} != "
                                  f"its tiers' {t_tiers}, or {cell.n_collectives} collectives "
                                  f"against CommDebugMode's {cell.n_collectives_comm_debug}")
+        if cell.temp_bytes > hw.HBM_CAPACITY_BYTES:
+            raise AssertionError(f"dry run {arch} x {shape}: {cell.temp_bytes} B live a card at "
+                                 f"the peak, above the card's {hw.HBM_CAPACITY_BYTES:.0f} B "
+                                 f"(top live: {cell.top_live_ops[:3]})")
         report(f"dryrun {arch} x {shape} on {cell.mesh}, per device: "
                f"{json.dumps({k: getattr(cell, k) for k in keys})} ({time.time() - t0:.1f} s on "
                f"the host; {cell.link})")

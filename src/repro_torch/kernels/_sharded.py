@@ -197,11 +197,36 @@ class _Ready(torch.autograd.Function):
         return grad.contiguous()
 
 
-def local_call(fn: Callable, args: Sequence, in_pl: Sequence, out_pl, mesh):
+def partial_on(pl: tuple, dims) -> tuple:
+    """``pl`` with a pending sum (Partial) on each mesh dimension in ``dims``
+    (an int, or several): the gradient placements of an input that every
+    rank of such a dimension reads whole while each computes its own part
+    of the output, so that each rank's gradient is a share. The heads' mesh
+    dimension for k/v a rank narrows to its groups and for the SSD scan's B
+    and C; the batch's mesh dimensions for a per-head parameter (the SSD
+    scan's A, wkv6's u), read whole by every batch shard."""
+    from torch.distributed.tensor import Partial
+
+    dims = {dims} if isinstance(dims, int) else set(dims)
+    return tuple(Partial() if i in dims else p for i, p in enumerate(pl))
+
+
+def batch_dims(x_pl: tuple, heads_on: Optional[int]) -> list:
+    """The mesh dimensions that split an input's batch (any split but the
+    heads' in ``head_split``'s placements)."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(x_pl) if isinstance(p, Shard) and i != heads_on]
+
+
+def local_call(fn: Callable, args: Sequence, in_pl: Sequence, out_pl, mesh,
+               grad_pl: Optional[Sequence] = None):
     """``fn`` on each rank's local shards of ``args`` (DTensors redistributed
     to ``in_pl``; None for a non-tensor argument), its result a DTensor of
     ``out_pl`` (one output's placements, or a tuple of them, one an
-    output): ``torch.distributed.tensor.experimental.local_map``."""
+    output): ``torch.distributed.tensor.experimental.local_map``.
+    ``grad_pl`` gives each input's gradient placements where they are not
+    its ``in_pl`` (``partial_on``); None keeps ``in_pl``."""
     from torch.distributed.tensor import DTensor, Placement, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -220,4 +245,5 @@ def local_call(fn: Callable, args: Sequence, in_pl: Sequence, out_pl, mesh):
         return fn(*(_Ready.apply(x) if isinstance(x, torch.Tensor) else x for x in xs))
 
     return local_map(run, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=None if grad_pl is None else tuple(grad_pl),
                      device_mesh=mesh, redistribute_inputs=True)(*args)

@@ -78,7 +78,11 @@ def _sharded_attention(q, k, v, causal, window, scale):
         return flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
                                causal=causal, window=window, scale=scale)
 
-    return _sharded.local_call(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl, mesh)
+    # a rank that narrows k/v to its groups gives them a share of their
+    # gradient: a pending sum over the heads' mesh dimension
+    kv_grad = kv_pl if pick is None else _sharded.partial_on(kv_pl, heads_on)
+    return _sharded.local_call(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl, mesh,
+                               grad_pl=(q_pl, kv_grad, kv_grad))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,

@@ -92,4 +92,7 @@ def _sharded_wkv6(r, k, v, w, u, state, state_out):
         xs = [x.contiguous() for x in xs[:6]] + list(xs[6:])
         return wkv6(*xs[:6], state_out=xs[6] if len(xs) > 6 else None)
 
-    return _sharded.local_call(local, args, in_pl, (x_pl, s_pl), mesh)
+    # every batch shard reads u whole: its gradient is each rank's share
+    u_grad = _sharded.partial_on(u_pl, _sharded.batch_dims(x_pl, heads_on))
+    grad_pl = [x_pl] * 4 + [u_grad] + in_pl[5:]
+    return _sharded.local_call(local, args, in_pl, (x_pl, s_pl), mesh, grad_pl=grad_pl)

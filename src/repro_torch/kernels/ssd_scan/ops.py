@@ -68,5 +68,9 @@ def _sharded_ssd_scan(xh, dt, A, B, C):
     def local(*xs):
         return ssd_scan(*(x.contiguous() for x in xs))
 
+    # every rank reads B and C whole for its own heads, and A whole for its
+    # own batch: their gradients are each rank's share, pending sums
+    bc_grad = _sharded.partial_on(bc_pl, heads_on)
+    a_grad = _sharded.partial_on(a_pl, _sharded.batch_dims(x_pl, heads_on))
     return _sharded.local_call(local, (xh, dt, A, B, C), (x_pl, x_pl, a_pl, bc_pl, bc_pl),
-                               x_pl, mesh)
+                               x_pl, mesh, grad_pl=(x_pl, x_pl, a_grad, bc_grad, bc_grad))

@@ -95,6 +95,7 @@ class CellResult:
     flops_by_op: dict = field(default_factory=dict)
     flops_by_phase: dict = field(default_factory=dict)  # forward | backward | recompute
     top_hbm_ops: list = field(default_factory=list)
+    top_live_ops: list = field(default_factory=list)  # what is live at the temp_bytes peak
     top_flop_ops: list = field(default_factory=list)
     top_collectives: list = field(default_factory=list)
     link: str = LINK_NOTE
@@ -211,6 +212,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: bo
     res.flops_by_op = counts.flops_by_op
     res.flops_by_phase = counts.flops_by_phase
     res.top_hbm_ops = counts.top_hbm_ops
+    res.top_live_ops = counts.top_live_ops
     res.top_flop_ops = counts.top_flop_ops
     res.top_collectives = counts.top_collectives
 

@@ -34,7 +34,13 @@ new op and placement) is counted nowhere.
     the death of the last tensor on it; autograd's saved tensors keep
     theirs). The counterpart of XLA's ``temp_size_in_bytes`` (here with the
     outputs in it), and a lower bound on the caching allocator's peak: no
-    rounding, no workspaces, no fragmentation.
+    rounding, no workspaces, no fragmentation. ``top_live_ops`` lists what
+    is live at that peak (read when the live bytes first reach within
+    ``PEAK_STEP`` of it), by the op and shape that made each storage. A
+    collective's ``_wrap_tensor_autograd`` counts nothing: on a card it
+    wraps the collective's output (an ``AsyncCollectiveTensor``), where its
+    shape-only kernel makes a new storage; that output lives as long as the
+    wrapper.
   * Collective wire bytes: every collective DTensor issues (those
     ``CommDebugMode`` counts), sized from its output tensor, with the ring
     factors of ``hlo_analysis.py``: all-gather and reduce-scatter (n-1)/n,
@@ -89,6 +95,7 @@ _EMPTY = {"empty", "empty_like", "empty_strided", "empty_permuted", "new_empty",
 
 TOP_MIN_BYTES = 1 << 28  # top_hbm_ops keeps ops above 256 MiB, as hlo_analysis does
 TOP_N = 8
+PEAK_STEP = 0.01  # top_live_ops is read again when the peak grows by this share
 
 
 @dataclass
@@ -110,6 +117,7 @@ class RooflineCounts:
     kernels: dict = field(default_factory=dict)  # name -> {"calls", "flops", "bytes"}
     writes: dict = field(default_factory=lambda: defaultdict(float))  # storage -> bytes written
     top_hbm_ops: list = field(default_factory=list)  # [{"op", "calls", "bytes"}]
+    top_live_ops: list = field(default_factory=list)  # at the peak: [{"op", "calls", "bytes"}]
     top_flop_ops: list = field(default_factory=list)  # [{"op", "calls", "flops"}]
     top_collectives: list = field(default_factory=list)  # [{"op", "calls", "wire_bytes"}]
 
@@ -199,6 +207,10 @@ def _tally(table: dict, key: str, n: float) -> None:
     row[1] += n
 
 
+def _keep(*_) -> None:
+    """A finalizer that does nothing: it holds its arguments alive."""
+
+
 def _top(table: dict, key: str, least: float = 0.0) -> list:
     rows = [{"op": op, "calls": calls, key: b} for op, (calls, b) in table.items() if b > least]
     return sorted(rows, key=lambda r: -r[key])[:TOP_N]
@@ -215,19 +227,27 @@ class LocalCounter(TorchDispatchMode):
         self.hbm: dict = defaultdict(lambda: [0, 0.0])  # descr -> [calls, bytes]
         self.flop: dict = defaultdict(lambda: [0, 0.0])  # descr -> [calls, flops]
         self.wire: dict = defaultdict(lambda: [0, 0.0])  # descr -> [calls, wire bytes]
-        self.live: dict = {}  # storage -> its finalizer
+        self.live: dict = {}  # storage -> (its finalizer, the op and shape that made it, bytes)
         self.live_bytes = 0
+        self.peak_read = 0  # live bytes when top_live_ops was last read
         self.fallback = None  # the storage standing for an all-to-all's output
 
     # ------------------------------------------------------------ live bytes --
-    def _made(self, storage, n: int) -> None:
+    def _made(self, storage, n: int, descr: str) -> None:
         """A new storage of ``n`` bytes, live until its last tensor dies."""
         key = storage._cdata
         if key in self.live:
             return
-        self.live[key] = weakref.finalize(storage, self._died, key, n)
+        self.live[key] = (weakref.finalize(storage, self._died, key, n), descr, n)
         self.live_bytes += n
         self.counts.temp_bytes = max(self.counts.temp_bytes, self.live_bytes)
+        if (self.live_bytes >= TOP_MIN_BYTES
+                and self.live_bytes > (1 + PEAK_STEP) * self.peak_read):
+            self.peak_read = self.live_bytes
+            table = defaultdict(lambda: [0, 0.0])
+            for _, d, b in self.live.values():
+                _tally(table, d, b)
+            self.counts.top_live_ops = _top(table, "bytes")
 
     def _died(self, key, n: int) -> None:
         self.live.pop(key, None)
@@ -235,13 +255,12 @@ class LocalCounter(TorchDispatchMode):
 
     def _forget(self, key) -> None:
         """Stop counting a storage that is still alive."""
-        fin = self.live.pop(key, None)
-        info = fin.detach() if fin is not None else None
-        if info is not None:
-            self.live_bytes -= info[2][1]
+        entry = self.live.pop(key, None)
+        if entry is not None and entry[0].detach() is not None:
+            self.live_bytes -= entry[2]
 
     def close(self) -> None:
-        for fin in list(self.live.values()):
+        for fin, _, _ in list(self.live.values()):
             fin.detach()
         self.live.clear()
 
@@ -291,7 +310,7 @@ class LocalCounter(TorchDispatchMode):
         for st, _ in self._new_storages(args, {}, out):
             if fallback:
                 self.fallback = (st._cdata, data)
-            self._made(st, data if fallback else st.nbytes())
+            self._made(st, data if fallback else st.nbytes(), _descr(kind, shown))
 
     def kernel(self, name: str, flops: float, n_bytes: float, out_bytes: int) -> None:
         """A shape-only kernel call (``_sharded.watching``)."""
@@ -327,6 +346,11 @@ class LocalCounter(TorchDispatchMode):
             return out
         c = self.counts
         name = packet.__name__
+        if func.namespace == "_c10d_functional" and name == "_wrap_tensor_autograd":
+            # an alias of the collective's output on a card: keep that alive
+            # as long as this storage, and count nothing
+            weakref.finalize(out.untyped_storage(), _keep, args[0]).atexit = False
+            return out
         kind = COLLECTIVES.get(name) if func.namespace == "_c10d_functional" else None
         if kind is not None:
             self._collective(kind, args, out, bool(ctx & _ALLTOALL_FALLBACK))
@@ -339,7 +363,7 @@ class LocalCounter(TorchDispatchMode):
                     key, n = self.fallback
                     self._forget(key)
                     self.fallback = (st._cdata, n)
-                    self._made(st, n)
+                    self._made(st, n, _descr("all-to-all", out))
             return out
         if packet in flop_registry:
             f = float(flop_registry[packet](*args, **kwargs, out_val=out))
@@ -353,7 +377,7 @@ class LocalCounter(TorchDispatchMode):
                 c.op_output_bytes += n
                 _tally(self.hbm, _descr(name, x), n)
         for st, ts in self._new_storages(args, kwargs, out):
-            self._made(st, st.nbytes())
+            self._made(st, st.nbytes(), _descr(name, ts[0]))
             if name in _EMPTY:
                 continue
             n = sum(t.numel() * t.element_size() for t in ts)

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..runtime.pspec import constrain, fit_split, fit_sum, rows_grad, whole_rows
+from ..runtime.pspec import (constrain, fit_grad, fit_split, fit_sum, laid_out, laid_out_grad,
+                             rows_grad, whole_rows)
 from .layers import act_fn, normal
 
 
@@ -45,12 +46,16 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
     (token, k) pairs found a place in their expert's queue."""
     b, s, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    tokens = whole_rows(x).reshape(b * s, d)
+    # the tokens' gradient made ready to be viewed back as (b, s) rows
+    tokens = fit_grad(whole_rows(x).reshape(b * s, d), 0, b)
     n = tokens.shape[0]
     gl = min(cfg.moe_group, n)
     n_groups = max(1, n // gl)
     gl = n // n_groups
-    xt = fit_split(tokens[:n_groups * gl], 0, n_groups).reshape(n_groups, gl, d)
+    # the slice only where a ragged tail is left: on a DTensor split over the
+    # tokens even a slice that takes them all gathers them on every rank
+    routed = tokens[:n_groups * gl] if n_groups * gl < n else tokens
+    xt = fit_split(routed, 0, n_groups).reshape(n_groups, gl, d)
 
     probs = torch.softmax(xt.float() @ p["router"], dim=-1)  # (g, t, E)
     # top-k gates (sorted, as jax.lax.top_k), normalised over the chosen experts
@@ -79,15 +84,19 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
     # einsums promote (a bf16 x with fp32 weights runs them in fp32); each
     # .to is a no-op where the dtypes agree
     wdt = torch.promote_types(x.dtype, p["w_in"].dtype)
+    # a redistribution may leave a shard laid out otherwise than its global
+    # strides (torch 2.13), which the next product's view then misreads:
+    # ``laid_out`` on h forward, ``laid_out_grad`` on h's and gt's gradients
+    # (no-ops on plain tensors)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xt).to(wdt)  # (g, E, C, d)
     xe = constrain(xe, "moe_expert_in")
-    h = torch.einsum("gecd,edf->gecf", xe, p["w_in"].to(wdt))
+    h = laid_out_grad(torch.einsum("gecd,edf->gecf", xe, p["w_in"].to(wdt)))
     if "w_gate" in p:
-        gt = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(wdt))
+        gt = laid_out_grad(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(wdt)))
         h = act_fn("silu" if cfg.mlp == "swiglu" else cfg.act)(gt) * h
     else:
         h = act_fn(cfg.act)(h)
-    h = constrain(h, "moe_hidden")
+    h = laid_out(constrain(h, "moe_hidden"))
     ye = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(wdt))
     ye = fit_sum(ye, C)  # the combine contracts (e, c) and flattens them
     y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)

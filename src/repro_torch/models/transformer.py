@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from ..runtime.pspec import constrain
+from ..runtime.pspec import constrain, reduced_grad, unbind_layers
 from . import attention as attn
 from . import moe, rwkv, ssm
 from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
@@ -144,6 +144,20 @@ def _layer(stack: Any, i: int) -> Any:
     return stack[i]
 
 
+def _unbind(stack: Any, n: int) -> list:
+    """The ``n`` layers of a stacked param tree, each leaf unbound once
+    (views): the backward then stacks each leaf's layer gradients once,
+    where ``_layer`` a layer would make a zero stack for every layer."""
+    if isinstance(stack, dict):
+        parts = {k: _unbind(v, n) for k, v in stack.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(unbind_layers(stack))
+
+
+def _map(fn, tree: Any) -> Any:
+    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
 def _block_layer(params: dict, blk: BlockSpec, bparams: dict, i: int) -> dict:
     """The params of layer ``i`` of a block: a shared_attn block's one layer
     is its shared param set."""
@@ -233,8 +247,10 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False):
     x = _embed_input(cfg, params, batch)
     aux, dropped = 0.0, 0  # tensors from the first MoE layer on
     for blk, bparams in zip(layer_plan(cfg), params["blocks"]):
-        for i in range(blk.n):
-            args = (cfg, blk.kind, blk.local, _block_layer(params, blk, bparams, i), x)
+        layers = (_unbind(bparams, blk.n) if blk.kind != "shared_attn"
+                  else [params["shared"][blk.shared_idx]])
+        for p in layers:
+            args = (cfg, blk.kind, blk.local, _map(reduced_grad, p), x)
             if remat:
                 x, a, n = checkpoint(_layer_forward, *args, use_reentrant=False)
             else:

@@ -58,17 +58,25 @@ def whole_rows(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
-class _WholeRowsGrad(torch.autograd.Function):
-    """Identity forward; the gradient brought to ``whole_rows`` backward, so
-    that the backward of the product it follows can flatten its rows."""
+class _OnGrad(torch.autograd.Function):
+    """Identity forward; ``fn`` of the gradient backward."""
 
     @staticmethod
-    def forward(ctx, y):
-        return y.view_as(y)
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return whole_rows(grad)
+        return ctx.fn(grad), None
+
+
+def _on_grad(x: torch.Tensor, fn) -> torch.Tensor:
+    """``x``, with ``fn`` applied to its gradient on the way back, where
+    ``x`` is a DTensor that takes a gradient; else ``x`` itself."""
+    if is_sharded(x) and torch.is_grad_enabled() and x.requires_grad:
+        return _OnGrad.apply(x, fn)
+    return x
 
 
 def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -83,16 +91,15 @@ def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def rows_grad(y: torch.Tensor) -> torch.Tensor:
     """``y``, its gradient brought to ``whole_rows`` on the way back: for a
     result whose backward flattens its rows (a product's, a reshape's)."""
-    if is_sharded(y) and torch.is_grad_enabled() and y.requires_grad:
-        return _WholeRowsGrad.apply(y)
-    return y
+    return _on_grad(y, whole_rows)
 
 
 def fit_split(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """``x`` ready for a view that splits dimension ``dim`` into (n, rest):
-    that dimension unsplit unless its shards divide ``n`` (DTensor can only
-    keep a split on the leading part of such a view; GSPMD reshards). A
-    plain tensor is returned as it is."""
+    of the mesh dimensions that split it (nested in mesh order), the
+    longest leading run whose shards divide ``n`` is kept and the rest made
+    whole (DTensor can only keep a split on the leading part of such a
+    view; GSPMD reshards). A plain tensor is returned as it is."""
     if not is_sharded(x):
         return x
     from torch.distributed.tensor import Replicate, Shard
@@ -100,12 +107,13 @@ def fit_split(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     dim = dim % x.dim()
     mesh = x.device_mesh
     on = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
-    ways = 1
-    for i in on:
-        ways *= mesh.size(i)
-    if n % ways == 0:
+    ways, keep = 1, 0
+    while keep < len(on) and n % (ways * mesh.size(on[keep])) == 0:
+        ways *= mesh.size(on[keep])
+        keep += 1
+    if keep == len(on):
         return x
-    want = tuple(Replicate() if i in on else p for i, p in enumerate(x.placements))
+    want = tuple(Replicate() if i in on[keep:] else p for i, p in enumerate(x.placements))
     return x.redistribute(mesh, want)
 
 
@@ -146,27 +154,97 @@ def fit_sum(x: torch.Tensor, n: int) -> torch.Tensor:
     return x if want == list(x.placements) else x.redistribute(mesh, tuple(want))
 
 
-class _FitGrad(torch.autograd.Function):
-    """Identity forward; ``fit_split`` of the gradient backward."""
-
-    @staticmethod
-    def forward(ctx, x, dim, n):
-        ctx.fit = (dim, n)
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return fit_split(grad, *ctx.fit), None, None
-
-
 def fit_grad(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """``x``, its gradient made ready (``fit_split``) for the backward of a
     view that merged (n, rest) into dimension ``dim``: a weight flattened
     over its heads, whose gradient DTensor may split in a way the heads do
     not divide."""
-    if is_sharded(x) and torch.is_grad_enabled() and x.requires_grad:
-        return _FitGrad.apply(x, dim, n)
-    return x
+    return _on_grad(x, lambda g: fit_split(g, dim, n))
+
+
+def laid_out(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its local shard laid out in the order its global strides
+    give. A redistribution can leave a contiguous local shard under the
+    global strides of a permuted tensor (an expert product's output, whose
+    batched matmul ran expert-major); a product that then views the global
+    tensor as contiguous would view the local shard wrongly (torch 2.13's
+    ``Cannot view a tensor ...``). Such a DTensor is copied contiguous, both
+    sides then agreeing; a plain tensor, or a DTensor whose shard agrees, is
+    returned as it is."""
+    if not is_sharded(x):
+        return x
+    local = x._local_tensor
+
+    def order(t):
+        return [i for i in sorted(range(t.dim()), key=lambda i: -t.stride(i))
+                if t.shape[i] > 1]
+
+    if local.numel() == 0 or order(local) == order(x):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def laid_out_grad(y: torch.Tensor) -> torch.Tensor:
+    """``y``, its gradient brought to ``laid_out`` on the way back: for the
+    output of a product whose backward views that gradient (an expert
+    product's, whose gradient a redistribution may have made contiguous
+    under permuted global strides)."""
+    return _on_grad(y, laid_out)
+
+
+def reduced_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its gradient reduced to ``x``'s placements as soon as it
+    arrives. For a layer's params, taken just before the layer runs: the
+    autograd engine runs a node by the order it was made in, latest first,
+    so the reduction of a gradient made at the start of the forward (where
+    the layers are unbound) would wait for the end of the backward, every
+    layer's unreduced gradient (the whole of an FSDP dimension) alive until
+    then; made at the layer, it runs when the layer's backward is done, as
+    XLA reduces a scanned layer's gradient. A plain tensor is returned as it
+    is."""
+    if not is_sharded(x):
+        return x
+    mesh, pl = x.device_mesh, tuple(x.placements)
+
+    def reduce(grad):
+        # redistributed to x's placements (a pending sum reduced: a
+        # reduce-scatter onto an FSDP shard, else an all-reduce), waited for
+        from torch.distributed._functional_collectives import AsyncCollectiveTensor
+        from torch.distributed.tensor import DTensor
+
+        if tuple(grad.placements) != pl:
+            grad = grad.redistribute(mesh, pl)
+        local = grad._local_tensor
+        if isinstance(local, AsyncCollectiveTensor):
+            grad = DTensor.from_local(local.wait(), mesh, pl, run_check=False,
+                                      shape=grad.shape, stride=grad.stride())
+        return grad
+
+    return _on_grad(x, reduce)
+
+
+def unbind_layers(x: torch.Tensor) -> tuple:
+    """``x.unbind(0)``: the layers of a stacked leaf as views, whose backward
+    stacks the layers' gradients once (``stack[i]`` a layer would make a
+    zero stack for each). A DTensor is unbound shard by shard
+    (``local_map``), its layer dimension whole (the policy never splits it;
+    a split or a pending sum there is made whole first), so that no torch
+    version's DTensor plan for ``unbind`` is needed."""
+    if not is_sharded(x):
+        return x.unbind(0)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p.is_partial() or (isinstance(p, Shard) and p.dim == 0) else p
+               for p in x.placements)
+    out = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in pl]
+    parts = local_map(lambda t: t.unbind(0), out_placements=tuple([out] * x.shape[0]),
+                      in_placements=(pl,), device_mesh=mesh, redistribute_inputs=True)(x)
+    if any(tuple(p.shape) != tuple(x.shape[1:]) for p in parts):
+        raise ValueError(f"unbind_layers: a layer of {tuple(x.shape)} on {pl} came out "
+                         f"{tuple(parts[0].shape)}: its shards are uneven")
+    return tuple(parts)
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import Any, Optional
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels._sharded import is_dtensor as is_sharded, local_call
 from ..models import transformer as tf
 from ..tree import tree_leaves, tree_map
 from .optimizer import AdamWConfig, adamw_init, adamw_update
@@ -37,10 +38,8 @@ def loss_fn(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = True):
     logits, aux = tf.forward(cfg, params, batch, remat=remat)
     logits = logits.float()
     # -log_softmax at the label as lse - logit: no second (b, s, vocab) tensor
-    lse = torch.logsumexp(logits, dim=-1)
-    # a gather from vocab-sharded logits leaves a masked pending sum, which
-    # DTensor reduces right only before any view of it
-    nll = lse - settled(logits.gather(-1, batch["labels"][..., None]))[..., 0]
+    lse, picked = lse_and_label_logits(logits, batch["labels"])
+    nll = lse - picked
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask.to(nll.dtype)
@@ -53,6 +52,59 @@ def loss_fn(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = True):
     zl = settled(Z_LOSS * lse.square().mean())
     total = loss + zl + MOE_AUX_WEIGHT * settled(aux["moe_aux"])
     return total, {"nll": loss, "z_loss": zl, "moe_aux": aux["moe_aux"]}
+
+
+def lse_and_label_logits(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp of ``logits`` over the vocab, ``logits[..., labels]``):
+    (b, s, V), (b, s) -> (b, s), (b, s). A plain tensor takes
+    ``torch.logsumexp`` and ``gather``. A DTensor whose vocab is split works
+    on each rank's own shard (``local_map``), as Megatron's vocab-parallel
+    cross-entropy does: the max over the vocab (a pending max, reduced), the
+    sum of exp(logit - max) (a pending sum, reduced), and the label's logit
+    picked where the label less the shard's vocab offset falls in the shard,
+    0 elsewhere (a pending sum with one non-zero term a row: the gather's
+    value exactly). No rank then holds more of the logits than its shard,
+    and the backward writes that shard only, where DTensor's ``logsumexp``
+    would gather the vocab and its ``gather``'s backward would make zeros of
+    the global logits on every rank."""
+    if not is_sharded(logits):
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(-1, labels[..., None])[..., 0])
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    V = logits.shape[last]
+    lg_pl, row_pl, vocab_on, off = [], [], None, 0
+    for i, p in enumerate(logits.placements):
+        if isinstance(p, Shard) and p.dim == last and vocab_on is None:
+            vocab_on = i
+            n = mesh.size(i)
+            off = min(mesh.get_local_rank(i) * -(-V // n), V)  # DTensor's shards: torch.chunk's
+            lg_pl.append(p)
+            row_pl.append(Replicate())
+        elif isinstance(p, Shard) and p.dim < last:
+            lg_pl.append(p)
+            row_pl.append(p)
+        else:  # a pending sum, or a second split of the vocab: whole
+            lg_pl.append(Replicate())
+            row_pl.append(Replicate())
+    lg_pl, row_pl = tuple(lg_pl), tuple(row_pl)
+
+    def pending(op):
+        return tuple(Partial(op) if i == vocab_on else p for i, p in enumerate(row_pl))
+
+    def pick(lg, lab):
+        idx = lab.long() - off
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        got = lg.gather(-1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+    m = settled(local_call(lambda lg: lg.amax(-1), [logits.detach()], [lg_pl], pending("max"),
+                           mesh))
+    sum_exp = local_call(lambda lg, mx: torch.exp(lg - mx[..., None]).sum(-1), [logits, m],
+                         [lg_pl, row_pl], pending("sum"), mesh)
+    picked = local_call(pick, [logits, labels], [lg_pl, row_pl], pending("sum"), mesh)
+    return settled(sum_exp).log() + m, settled(picked)
 
 
 def _rebuild(tree: Any, leaves) -> Any:

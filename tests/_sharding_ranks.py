@@ -17,6 +17,10 @@ SERVE_CASES = {
     "dbrx-132b": {"fsdp": True},
 }
 DECODE_STEPS = 4
+# arch -> the policy fields set by hand for its train step: dbrx (MoE) on
+# FSDP, its reduced 4 heads in one k/v group (each "model" rank narrows k/v
+# to its group); zamba2's SSD scan on each rank's heads (B and C read whole)
+TRAIN_CASES = {"qwen3-0.6b": {}, "dbrx-132b": {"fsdp": True}, "zamba2-7b": {}}
 
 
 def policy_for(cfg, mesh, overrides):
@@ -30,13 +34,15 @@ def policy_for(cfg, mesh, overrides):
 
 def run(rank, device, inputs_path):
     """``inputs_path``: a pickle of (``serve_inputs``: {arch: (numpy params,
-    tokens (b, s))}, ``train_inputs``: (arch, numpy params, numpy batch,
-    lr)), read from a file so that the spawn's arguments stay small (the
-    spawn writes a process's arguments down a pipe the new process reads
-    only once it has imported torch, so large ones start the ranks one
-    after another). Rank 0 returns
-    {arch: {"prefill", "decode", "placements"}, "train": (params, opt
-    state, metrics), "device_refused": bool} as numpy and numbers."""
+    tokens (b, s))}, ``train_inputs``: {arch: (numpy params, numpy batch,
+    lr)}, ``pick_inputs``: (logits (b, s, V), labels (b, s), cotangents of
+    the logsumexp and of the pick, as numpy)), read from a file so that the
+    spawn's arguments stay small (the spawn writes a process's arguments
+    down a pipe the new process reads only once it has imported torch, so
+    large ones start the ranks one after another). Rank 0 returns
+    {arch: {"prefill", "decode", "placements"}, "train": {arch: (params,
+    opt state, metrics)}, "pick": {"lse", "picked", "grad_lse",
+    "grad_picked"}, "device_refused": bool} as numpy and numbers."""
     import logging
     import pickle
 
@@ -54,7 +60,7 @@ def run(rank, device, inputs_path):
     # all-reduces) would land between the test run's progress dots
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
     with open(inputs_path, "rb") as f:
-        serve_inputs, train_inputs = pickle.load(f)
+        serve_inputs, train_inputs, pick_inputs = pickle.load(f)
     mesh = init_device_mesh("cpu", MESH, mesh_dim_names=("data", "model"))
     out = {}
     try:  # under a policy the device is the mesh's
@@ -78,17 +84,40 @@ def run(rank, device, inputs_path):
         out[arch] = {"prefill": logits.full_tensor().numpy(),
                      "decode": torch.stack(dec, 1).numpy(),
                      "placements": str(logits.placements)}
-    arch, tree, batch, lr = train_inputs
-    cfg = get_config(arch).reduced()
-    pol = policy_for(cfg, mesh, {})
-    params = sh.shard_params(bridge.params_from_numpy(tree, device="cpu"), pol)
-    c = opt.AdamWConfig(lr=lr, warmup_steps=0)
-    p, s, m = make_train_step(cfg, c, remat=False, policy=pol)(params, opt.adamw_init(c, params),
-                                                               batch)
-    p, s = sh.gather(p), sh.gather(s)
-    out["train"] = (bridge.params_to_numpy(p), bridge.opt_state_to_numpy(s),
-                    {k: float(sh.gather({"x": v})["x"]) for k, v in m.items()})
+    out["train"] = {}
+    for arch, (tree, batch, lr) in train_inputs.items():
+        cfg = get_config(arch).reduced()
+        pol = policy_for(cfg, mesh, TRAIN_CASES[arch])
+        params = sh.shard_params(bridge.params_from_numpy(tree, device="cpu"), pol)
+        c = opt.AdamWConfig(lr=lr, warmup_steps=0)
+        p, s, m = make_train_step(cfg, c, remat=False, policy=pol)(
+            params, opt.adamw_init(c, params), batch)
+        p, s = sh.gather(p), sh.gather(s)
+        out["train"][arch] = (bridge.params_to_numpy(p), bridge.opt_state_to_numpy(s),
+                              {k: float(sh.gather({"x": v})["x"]) for k, v in m.items()})
+    out["pick"] = pick(mesh, *pick_inputs)
     return out if rank == 0 else None
+
+
+def pick(mesh, logits, labels, d_lse, d_picked) -> dict:
+    """``train.lse_and_label_logits`` on logits split over the batch
+    ("data") and the vocab ("model"), labels over the batch: its values and
+    the logits' gradient under the given cotangents, whole, as numpy."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.runtime.train import lse_and_label_logits
+
+    x = distribute_tensor(torch.from_numpy(logits), mesh, [Shard(0), Shard(2)])
+    x = x.detach().requires_grad_()
+    lab = distribute_tensor(torch.from_numpy(labels), mesh, [Shard(0), Replicate()])
+    lse, picked = lse_and_label_logits(x, lab)
+    out = {"lse": lse.full_tensor().detach().numpy(),
+           "picked": picked.full_tensor().detach().numpy()}
+    for name, y, dy in (("grad_lse", lse, d_lse), ("grad_picked", picked, d_picked)):
+        dy = distribute_tensor(torch.from_numpy(dy), mesh, list(y.placements))
+        (g,) = torch.autograd.grad(y, x, dy, retain_graph=True)
+        out[name] = g.full_tensor().numpy()
+    return out
 
 
 def numpy_tokens(vocab: int, b: int, s: int, seed: int) -> np.ndarray:

@@ -6,7 +6,9 @@ spec of all ten configs on both production meshes, the activation specs,
 per-device bf16 parameter bytes; then one spawn of 4 gloo CPU ranks on a
 (2, 2) mesh that runs the sharded prefill, decode and train step of reduced
 configs through the entry points with ``policy=``, held to JAX's unsharded
-``forward`` / ``decode_step`` / train step and to the unsharded port.
+``forward`` / ``decode_step`` / train step and to the unsharded port, and
+the loss's vocab-parallel logsumexp and label pick against ``logsumexp`` and
+``gather``.
 
 JAX 0.9 cannot compile the reference's sharded programs
 (``tests/test_sharding.py::test_reduced_configs_compile_on_small_mesh``
@@ -167,8 +169,18 @@ def _serve_inputs():
 
 
 def _train_inputs():
-    cfg = get_config(TRAIN_ARCH).reduced()
-    return TRAIN_ARCH, _weights(TRAIN_ARCH, 0), _batch(cfg, S, seed=1), LR
+    return {arch: (_weights(arch, i), _batch(get_config(arch).reduced(), S, seed=1 + i), LR)
+            for i, arch in enumerate(ranks.TRAIN_CASES)}
+
+
+def _pick_inputs():
+    """Logits (B, S, V) with V = 64 over "model" 2, labels in both vocab
+    halves, and the two outputs' cotangents."""
+    r = np.random.default_rng(7)
+    logits = r.standard_normal((B, S, 64)).astype(np.float32) * 3
+    labels = r.integers(0, 64, (B, S)).astype(np.int64)
+    return (logits, labels, r.standard_normal((B, S)).astype(np.float32),
+            r.standard_normal((B, S)).astype(np.float32))
 
 
 @pytest.fixture(scope="module")
@@ -176,15 +188,17 @@ def sharded(tmp_path_factory):
     """(inputs, references, what rank 0 returned): one spawn of 4 gloo ranks
     (every serve case, then the train step), started here, while the
     unsharded port's and JAX's results are computed."""
-    serve, train = _serve_inputs(), _train_inputs()
+    serve, train, pick = _serve_inputs(), _train_inputs(), _pick_inputs()
     path = tmp_path_factory.mktemp("sharded") / "inputs.pkl"
-    path.write_bytes(pickle.dumps((serve, train)))
+    path.write_bytes(pickle.dumps((serve, train, pick)))
     with ThreadPoolExecutor(max_workers=1) as pool:
         future = pool.submit(spawn_stages, 4, ranks.run, str(path), device="cpu",
                              timeout_s=240)
         refs = {arch: (_unsharded_port(arch, *serve[arch]), _unsharded_jax(arch, *serve[arch]))
                 for arch in serve}
-        refs["train"] = (_jax_train_step(*train), _unsharded_port_step(*train))
+        refs["train"] = {arch: (_jax_train_step(arch, *t), _unsharded_port_step(arch, *t))
+                         for arch, t in train.items()}
+        refs["pick"] = pick
         return serve, refs, future.result()[0]
 
 
@@ -265,9 +279,49 @@ def test_sharded_train_step_matches_unsharded(sharded):
     held to JAX's unsharded step and to the unsharded port by the train
     tests' criteria (metrics at 1e-5 relative)."""
     _, refs, got = sharded
-    jax_step, port_step = refs["train"]
-    _check_step(got["train"], jax_step)
-    _check_step(got["train"], port_step)
+    jax_step, port_step = refs["train"][TRAIN_ARCH]
+    _check_step(got["train"][TRAIN_ARCH], jax_step)
+    _check_step(got["train"][TRAIN_ARCH], port_step)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-7b"])
+def test_sharded_train_step_moe_and_ssd(sharded, arch):
+    """The AdamW step of reduced dbrx-132b (MoE, forced FSDP: gradients
+    reduce-scattered onto the shards a layer at a time; 4 heads in one k/v
+    group, which each "model" rank narrows to its group, so k/v's gradients
+    are each rank's share) and of reduced zamba2-7b (the SSD scan on each
+    rank's heads, B and C read whole), held like qwen3's to JAX's unsharded
+    step and to the unsharded port."""
+    _, refs, got = sharded
+    jax_step, port_step = refs["train"][arch]
+    _check_step(got["train"][arch], jax_step)
+    _check_step(got["train"][arch], port_step)
+
+
+def test_vocab_parallel_pick_matches_gather(sharded):
+    """``lse_and_label_logits`` on logits split over "data" and "model"
+    (each rank picks from its vocab half): the label's logit and its
+    gradient equal to ``gather``'s exactly, the logsumexp and its gradient
+    (the softmax) within 1e-6 of ``torch.logsumexp``'s; on plain tensors the
+    function is ``logsumexp`` and ``gather`` themselves."""
+    from repro_torch.runtime.train import lse_and_label_logits
+
+    _, refs, got = sharded
+    logits, labels, d_lse, d_picked = refs["pick"]
+    x = torch.from_numpy(logits).requires_grad_()
+    lab = torch.from_numpy(labels)
+    lse, picked = torch.logsumexp(x, -1), x.gather(-1, lab[..., None])[..., 0]
+    plain = lse_and_label_logits(x, lab)
+    assert torch.equal(plain[0], lse) and torch.equal(plain[1], picked)
+    (g_lse,) = torch.autograd.grad(lse, x, torch.from_numpy(d_lse))
+    (g_pick,) = torch.autograd.grad(picked, x, torch.from_numpy(d_picked))
+    (p_pick,) = torch.autograd.grad(plain[1], x, torch.from_numpy(d_picked))
+    assert torch.equal(p_pick, g_pick)
+    p = got["pick"]
+    np.testing.assert_array_equal(p["picked"], picked.detach().numpy())
+    np.testing.assert_array_equal(p["grad_picked"], g_pick.numpy())
+    np.testing.assert_allclose(p["lse"], lse.detach().numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(p["grad_lse"], g_lse.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_policy_device_is_the_mesh(sharded):
