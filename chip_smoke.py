@@ -1525,7 +1525,7 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
     one-card executor's (``one``) in place, both shared by CUDA IPC. Returns
     what the rank measured and counted: the wall of each call (host clock,
     the barrier to its return), token operations, flash launches, Compute
-    times, messages, and the card's memory in use."""
+    times, the timeline, and the card's memory in use."""
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.runtime import pipeline_ranks as pr
@@ -1535,7 +1535,7 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
     fn = pr.RankPipelineForward(cfg, plan, rank, device)
     tokens = tokens.to(device)
     fa_kernel.launches = 0
-    out = {"wall_ms": [], "counts": [], "stage_ms": [], "messages": []}
+    out = {"wall_ms": [], "counts": [], "stage_ms": [], "timeline": []}
     for _ in range(calls):
         dist.barrier()
         t0 = time.perf_counter()
@@ -1543,7 +1543,7 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
         out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
         out["counts"].append(fn.counts)
         out["stage_ms"].append(fn.stage_ms)
-        out["messages"].append(fn.messages)
+        out["timeline"].append(fn.timeline)
     out["launches"] = fa_kernel.launches
     free, total = torch.cuda.mem_get_info(device)
     out["card_used_gb"] = (total - free) / 1e9
@@ -1556,6 +1556,11 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
         out["one_card_equal"] = bool(torch.equal(logits, one))
         out["one_card_diff"] = (logits - one).abs().max().item()
     return out
+
+
+def _entry_ms(timeline, what) -> dict:
+    """{round: ms} of a rank's ``timeline`` entries of one kind."""
+    return {rd: end - start for kind, rd, _, start, end in timeline if kind == what}
 
 
 def drive_pipeline_ranks(kernel_mods, report) -> dict:
@@ -1683,15 +1688,14 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
                + " ".join(f"{ms:.1f}" for ms in one_stage_ms))
         per = []
         for i in range(S - 1):
-            d2h = {rd: ms for what, rd, ms in ranks[i]["messages"][c] if what == "d2h"}
-            got = ranks[i + 1]["messages"][c]
-            sr = {rd: ms for what, rd, ms in got if what == "send_recv"}
-            h2d = {rd: ms for what, rd, ms in got if what == "h2d"}
-            per += [f"{i}->{i + 1} r{rd} {d2h[rd]:.2f}/{sr[rd]:.2f}/{h2d[rd]:.2f}"
+            st = _entry_ms(ranks[i]["timeline"][c], "ST")
+            wait = _entry_ms(ranks[i + 1]["timeline"][c], "WAIT_REQ")
+            ld = _entry_ms(ranks[i + 1]["timeline"][c], "LD")
+            per += [f"{i}->{i + 1} r{rd} {st[rd]:.2f}/{wait[rd]:.2f}/{ld[rd]:.2f}"
                     for rd in range(M)]
-        report(f"{PIPE_ARCH} ranks call {c + 1} messages of {act_mb:.1f} MB, D2H / send-recv / "
-               "H2D ms (the copies by CUDA events, send-recv by the host clock): "
-               + ", ".join(per))
+        report(f"{PIPE_ARCH} ranks call {c + 1} messages of {act_mb:.1f} MB, the sender's ST "
+               "(its D2H copy) / the receiver's WAIT_REQ / its LD (the H2D copy) ms (the "
+               "ranks' timelines, CUDA events): " + ", ".join(per))
     report(f"{PIPE_ARCH} ranks memory: this process peak {peak_gb:.2f} GB allocated, "
            f"{reserved_gb:.2f} GB reserved; the ranks' peaks allocated "
            + " ".join(f"{r['peak_gb']:.2f}" for r in ranks) + " GB, reserved "

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..runtime.pspec import constrain, reduced_grad, unbind_layers
+from ..runtime.spans import span
 from . import attention as attn
 from . import moe, rwkv, ssm
 from .layers import embed, init_embedding, init_mlp, mlp, normal, rmsnorm, unembed
@@ -300,18 +301,25 @@ def decode_step(cfg: ArchConfig, params: dict, caches: list, batch: dict, pos: i
 
 def _layer_decode(cfg: ArchConfig, kind: str, local: bool, p: dict, x: torch.Tensor,
                   lc: dict, pos: int) -> torch.Tensor:
-    if kind == "mamba":
-        return x + ssm.mamba_decode_step(p["mamba"], cfg, rmsnorm(x, p["norm"], cfg.norm_eps),
-                                         lc)
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    if kind == "rwkv":
-        y, new_tm, _ = rwkv.rwkv_time_mix(p["tm"], cfg, h, lc["shift_tm"], lc["wkv"],
-                                          state_out=lc["wkv"])
-        lc["shift_tm"].copy_(new_tm)
-        x = x + y
+    """One layer of a decode step, its halves in the spans ``decode.attention``
+    (the token mixer: attention, rwkv's time mix, or a mamba layer whole) and
+    ``decode.ffn``."""
+    with span("decode.attention"):
+        if kind == "mamba":
+            return x + ssm.mamba_decode_step(p["mamba"], cfg,
+                                             rmsnorm(x, p["norm"], cfg.norm_eps), lc)
+        h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+        if kind == "rwkv":
+            y, new_tm, _ = rwkv.rwkv_time_mix(p["tm"], cfg, h, lc["shift_tm"], lc["wkv"],
+                                              state_out=lc["wkv"])
+            lc["shift_tm"].copy_(new_tm)
+            x = x + y
+        else:
+            x = x + attn.decode_attention(p["attn"], cfg, h, lc, pos, local=local)
+    with span("decode.ffn"):
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        y, new_cm = rwkv.rwkv_channel_mix(p["tm"], cfg, h, lc["shift_cm"])
-        lc["shift_cm"].copy_(new_cm)
-        return x + y
-    x = x + attn.decode_attention(p["attn"], cfg, h, lc, pos, local=local)
-    return x + _ffn(cfg, kind, p, rmsnorm(x, p["norm2"], cfg.norm_eps))[0]
+        if kind == "rwkv":
+            y, new_cm = rwkv.rwkv_channel_mix(p["tm"], cfg, h, lc["shift_cm"])
+            lc["shift_cm"].copy_(new_cm)
+            return x + y
+        return x + _ffn(cfg, kind, p, h)[0]

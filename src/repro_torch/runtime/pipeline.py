@@ -45,8 +45,13 @@ from ..core.isa import AddrCyc, Compute, DataMove, Group, Opcode, Sync
 from ..core.program import Program, PUProgram
 from ..models import transformer as tf
 from ..models.layers import embed
+from .spans import span
 
 SYNC_OPS = ("WAIT_REQ", "SEND_ACK", "WAIT_ACK", "SEND_REQ")
+# the spans of walk_stage: a group's pass and a token operation
+_SPANS = {**{g: f"pipeline.{g.name}" for g in Group},
+          **{Opcode[op]: f"pipeline.{op}" for op in SYNC_OPS}}
+_NO_GROUP = contextlib.nullcontext()
 _ROADMAP_ITEM = "a deliberate difference, ROADMAP queue 3: uniform dense stacks only"
 
 
@@ -225,7 +230,7 @@ def stack_stage_params(cfg: ArchConfig, params: dict, plan: PipelinePlan) -> dic
 
 
 def walk_stage(pu: PUProgram, prologue: bool, counts: dict[str, int], *, sync, move,
-               compute) -> None:
+               compute, group=None) -> None:
     """One pass over a stage's LD, CP and ST programs, in that order: the
     instructions before ``ICU_BA`` (the prologue, run once) or those from
     ``ICU_BA`` on (one round). Each Sync is a token operation, ``sync(inst)``,
@@ -233,28 +238,38 @@ def walk_stage(pu: PUProgram, prologue: bool, counts: dict[str, int], *, sync, m
     hands the round's activation in or on, ``move(group, bid)``, the buffer
     picked by the DataMove's cycled address; the Compute instruction runs the
     stage's layers, ``compute()``. The programs' dynamic state (BIDs and
-    addresses) steps as the ICU's does, so ``pu`` is a clone the caller owns."""
+    addresses) steps as the ICU's does, so ``pu`` is a clone the caller owns.
+
+    A group's pass, where it has instructions to run, lies in the span
+    ``pipeline.LD`` / ``.CP`` / ``.ST`` and inside the context ``group(g)``
+    where one is given (the executor across ranks times the pass); each Sync
+    lies in the span of its operation, ``pipeline.WAIT_REQ`` and so on
+    (``spans.span``)."""
     for prog in (pu.ld, pu.cp, pu.st):
         insts = prog.instructions
         icu_ba = prog.progctrl.icu_ba
         k, end = (0, icu_ba) if prologue else (icu_ba, len(insts))
-        while k < end:
-            inst = insts[k]
-            if isinstance(inst, Sync):
-                sync(inst)
-                counts[inst.op.name] += 1
-                inst.step()
-            elif isinstance(inst, DataMove):
-                cyc = insts[k + 1] if k + 1 < end else None
-                if not isinstance(cyc, AddrCyc):
-                    raise ValueError(f"{prog.name}[{k}]: a DataMove without the "
-                                     "AddrCyc that picks its buffer")
-                move(prog.group, (inst.cur_ba - cyc.ba) // cyc.aoffs)
-                inst.cur_ba = cyc.step(inst.cur_ba)
+        if k == end:
+            continue
+        with span(_SPANS[prog.group]), (group(prog.group) if group else _NO_GROUP):
+            while k < end:
+                inst = insts[k]
+                if isinstance(inst, Sync):
+                    with span(_SPANS[inst.op]):
+                        sync(inst)
+                    counts[inst.op.name] += 1
+                    inst.step()
+                elif isinstance(inst, DataMove):
+                    cyc = insts[k + 1] if k + 1 < end else None
+                    if not isinstance(cyc, AddrCyc):
+                        raise ValueError(f"{prog.name}[{k}]: a DataMove without the "
+                                         "AddrCyc that picks its buffer")
+                    move(prog.group, (inst.cur_ba - cyc.ba) // cyc.aoffs)
+                    inst.cur_ba = cyc.step(inst.cur_ba)
+                    k += 1
+                elif isinstance(inst, Compute):
+                    compute()
                 k += 1
-            elif isinstance(inst, Compute):
-                compute()
-            k += 1
 
 
 def check_programs(plan: PipelinePlan) -> None:

@@ -11,10 +11,10 @@ microbatch. The paper's ISU tokens become point-to-point messages
 
 - REQ ``i -> i+1``, BID b is the boundary activation itself. ST's DataMove
   copies the stage output into send buffer SB[b] (b from its AddrCyc);
-  SEND_REQ sends SB[b] behind a header of ``HEADER`` int64s (round, BID, the
-  time it was posted); WAIT_REQ receives into RB[b] and raises if the header
-  carries another BID than the one the program waits on; LD's DataMove copies
-  RB[b] into the stage input.
+  SEND_REQ sends SB[b] behind a header of ``HEADER`` int64s (round, BID);
+  WAIT_REQ receives into RB[b] and raises if the header carries another BID
+  than the one the program waits on; LD's DataMove copies RB[b] into the
+  stage input.
 - ACK ``i+1 -> i``, BID b is a one-element message holding b, sent only once
   the copy out of RB[b] has completed: the buffer has been consumed. The two
   prologue SEND_ACKs pre-authorize B0 and B1; WAIT_ACK blocks until the
@@ -29,19 +29,27 @@ failure:
 
 - gloo, the host transport. gloo reads a tensor's memory from the host, so SB
   and RB are host buffers (pinned when the stage runs on a card) and the
-  stage input lies on the rank's device. Each DataMove synchronizes its copy
-  on the host: the D2H copy into SB[b] is complete before the isend, and the
-  H2D copy out of RB[b] before the ACK. It is the transport that runs several
-  ranks on one card.
+  stage input lies on the rank's device. Each DataMove's copy is complete on
+  the host when it returns (``copy_`` without ``non_blocking``): the D2H copy
+  into SB[b] before the isend, and the H2D copy out of RB[b] before the ACK.
+  It is the transport that runs several ranks on one card.
 - nccl, the device transport: SB and RB live on the rank's card, one card a
   rank, and the card's stream orders the copies against the messages. NCCL
   runs the point-to-point operations of a communicator in order, so REQs and
   ACKs travel in two process groups of their own: each carries one kind of
   message between a pair, which both sides post in the same order. NCCL ignores
   tags; the header check catches a BID mix-up all the same.
+
+Each call keeps a timeline (``RankPipelineForward.timeline``) and opens the
+spans of ``spans.span`` for a profiler: ``pipeline.call`` around the call,
+``pipeline.LD`` / ``.CP`` / ``.ST`` around each group's pass and the
+token operations' spans inside them (``walk_stage``), and ``pipeline.finish``
+around the call's end, whose ACKs lie in ``pipeline.WAIT_ACK``. Every host
+wait on a token lies in a WAIT span.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import tempfile
@@ -63,8 +71,9 @@ from ..models.layers import embed
 from ..tree import tree_leaves, tree_map
 from .pipeline import (SYNC_OPS, PipelinePlan, _check_uniform_dense, check_programs,
                        program_sync_counts, walk_stage)
+from .spans import span
 
-HEADER = 3  # int64s ahead of a REQ's payload: round, BID, the ns it was posted at
+HEADER = 2  # int64s ahead of a REQ's payload: round, BID
 _POLL_S = (2e-5, 1e-3)  # an NCCL WAIT's first and longest pause between polls
 
 
@@ -210,11 +219,49 @@ def _wait(work, failed: list) -> None:
         failed.append(e)
 
 
+class _Timeline:
+    """One call's entries ``(what, round, bid, start, end)``. On a card,
+    start and end are CUDA events on the rank's stream, read against an
+    anchor event recorded and synchronised at the call's entry; on the CPU
+    they are the host's ``time.monotonic_ns()``. ``anchor_ns`` is the host
+    clock at the anchor, which every rank's process shares."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.entries: list[tuple] = []
+        self.anchor = self.mark()
+        if cuda:
+            self.anchor.synchronize()
+        self.anchor_ns = time.monotonic_ns()
+
+    def mark(self):
+        """A point on the timeline: the stream's, or the host's."""
+        if not self.cuda:
+            return time.monotonic_ns()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def add(self, what: str, r: int, bid: Optional[int], start, end=None) -> None:
+        self.entries.append((what, r, bid, start, self.mark() if end is None else end))
+
+    def ms(self, start, end) -> float:
+        return start.elapsed_time(end) if self.cuda else (end - start) / 1e6
+
+    def read(self) -> list[tuple]:
+        """The entries in ms from the anchor, once the call has synchronised."""
+        return [(w, r, b, self.ms(self.anchor, s), self.ms(self.anchor, e))
+                for w, r, b, s, e in self.entries]
+
+
 class _Messages:
     """The boundary buffers of one rank and the token messages over them:
     SB[0], SB[1] towards rank + 1, RB[0], RB[1] from rank - 1, each a byte
     buffer of ``HEADER`` int64s and the payload; ``host`` picks the transport
-    (host buffers, copies synchronized on the host) or the device one."""
+    (host buffers, copies synchronized on the host) or the device one. A
+    WAIT enters the call's ``timeline`` from before its irecv is posted to
+    after the message has arrived: on a card, the stream's stall across the
+    token."""
 
     def __init__(self, rank: int, n: int, shape: tuple, dtype: torch.dtype,
                  device: torch.device, host: bool, groups: tuple, timeout_s: float):
@@ -236,15 +283,15 @@ class _Messages:
         self.sb, self.rb = buffers(rank < n - 1), buffers(rank > 0)
         self.sending: list[Optional[tuple]] = [None, None]  # the isend of SB[b] in flight
         self.acks: list[tuple] = []  # ACK isends in flight, with their tensors
-        self.messages: list[tuple[str, int, float]] = []
+        self.timeline: Optional[_Timeline] = None  # the call's, set by the executor
 
     # -- waiting, with the timeout --------------------------------------------
-    def _await(self, work, what: str) -> int:
-        """Wait for ``work`` at most the timeout; the host time (ns) it
-        completed at. gloo completes an operation only inside ``wait()``, and
-        a ``wait(timeout)`` that expires closes the connection under the
-        peer, so the wait runs in a thread of its own, bounded here; an NCCL
-        operation completes on its stream and is polled."""
+    def _await(self, work, what: str) -> None:
+        """Wait for ``work`` at most the timeout. gloo completes an operation
+        only inside ``wait()``, and a ``wait(timeout)`` that expires closes
+        the connection under the peer, so the wait runs in a thread of its
+        own, bounded here; an NCCL operation completes on its stream and is
+        polled."""
         if self.host:
             failed: list[BaseException] = []
             waiter = threading.Thread(target=_wait, args=(work, failed), daemon=True)
@@ -254,7 +301,7 @@ class _Messages:
                 raise RuntimeError(f"{what} timed out after {self.timeout_s:g} s")
             if failed:
                 raise RuntimeError(f"{what} failed: {failed[0]}") from failed[0]
-            return time.monotonic_ns()
+            return
         deadline = time.monotonic() + self.timeout_s
         pause = _POLL_S[0]
         while not work.is_completed():
@@ -262,88 +309,69 @@ class _Messages:
                 raise RuntimeError(f"{what} timed out after {self.timeout_s:g} s")
             time.sleep(pause)
             pause = min(2 * pause, _POLL_S[1])
-        done = time.monotonic_ns()
         work.wait()  # raises what NCCL raised; orders the current stream after it
-        return done
-
-    def _copy(self, dst: torch.Tensor, src: torch.Tensor) -> float:
-        """The host transport's copy between the card and a host buffer,
-        complete on return; its ms: on a card the copy's device time (CUDA
-        events, which leave out the stage's work queued before it), on the
-        CPU the host clock."""
-        if not self.cuda:
-            t0 = time.perf_counter()
-            dst.copy_(src)
-            return (time.perf_counter() - t0) * 1e3
-        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev[0].record()
-        dst.copy_(src, non_blocking=True)
-        ev[1].record()
-        ev[1].synchronize()
-        return ev[0].elapsed_time(ev[1])
 
     # -- DataMoves ------------------------------------------------------------
     def put(self, b: int, h: torch.Tensor, r: int) -> None:
-        """ST: the stage output into SB[b], once SB[b]'s last isend is done."""
+        """ST: round r's stage output into SB[b], once SB[b]'s last isend is
+        done. On the host transport the copy is complete on return, so gloo
+        never reads SB[b] before it."""
         payload = self.sb[b][1]
         if self.sending[b] is not None:
             self._await(self.sending[b][0], f"the isend of SB[{b}]")
             self.sending[b] = None
         if h.dtype != payload.dtype or h.shape != payload.shape:
-            raise ValueError(f"stage output {h.dtype} {tuple(h.shape)}, the boundary "
-                             f"carries {payload.dtype} {tuple(payload.shape)}")
-        if self.host:  # gloo must not read SB[b] before the copy is done
-            self.messages.append(("d2h", r, self._copy(payload, h)))
-        else:
-            payload.copy_(h)
+            raise ValueError(f"round {r}'s stage output {h.dtype} {tuple(h.shape)}, the "
+                             f"boundary carries {payload.dtype} {tuple(payload.shape)}")
+        payload.copy_(h)
 
-    def take(self, b: int, inbuf: torch.Tensor, r: int) -> torch.Tensor:
+    def take(self, b: int, inbuf: torch.Tensor) -> torch.Tensor:
         """LD: RB[b] into the stage input; on the host transport the copy has
         completed when this returns, so the next SEND_ACK finds RB[b] free."""
-        if self.host:
-            self.messages.append(("h2d", r, self._copy(inbuf, self.rb[b][1])))
-        else:
-            inbuf.copy_(self.rb[b][1])
-        return inbuf
+        return inbuf.copy_(self.rb[b][1])
 
     # -- Syncs ----------------------------------------------------------------
     def send_req(self, dst: int, b: int, r: int) -> None:
         hdr, _, whole = self.sb[b]
-        hdr.copy_(torch.tensor([r, b, time.monotonic_ns()], dtype=torch.int64))
+        hdr.copy_(torch.tensor([r, b], dtype=torch.int64))
         self.sending[b] = (dist.isend(whole, dst, group=self.req_group), whole)
 
     def wait_req(self, src: int, b: int, r: int) -> None:
         hdr, _, whole = self.rb[b]
         name = f"REQ {src}->{self.rank}"
-        posted = time.monotonic_ns()
-        done = self._await(dist.irecv(whole, src, group=self.req_group),
-                           f"WAIT on {name} B{b}")
-        got_r, got_b, sent = hdr.tolist()
+        start = self.timeline.mark()
+        self._await(dist.irecv(whole, src, group=self.req_group), f"WAIT on {name} B{b}")
+        self.timeline.add("WAIT_REQ", r, b, start)
+        got_r, got_b = hdr.tolist()
         if got_b != b:
             raise RuntimeError(f"{name} carried B{got_b}, the program waits on B{b}")
         if got_r != r:
             raise RuntimeError(f"{name} B{b} carried round {got_r}, the program is in round {r}")
-        self.messages.append(("send_recv", r, (done - max(posted, sent)) / 1e6))
 
     def send_ack(self, dst: int, b: int) -> None:
         ack = torch.tensor([b], dtype=torch.int64, device=self.buf_dev)
         self.acks.append((dist.isend(ack, dst, group=self.ack_group), ack))
 
-    def wait_ack(self, src: int, b: Optional[int]) -> None:
+    def wait_ack(self, src: int, b: Optional[int], r: int) -> None:
         """WAIT_ACK on BID b; ``b`` None receives an ACK the programs left."""
         ack = torch.empty(1, dtype=torch.int64, device=self.buf_dev)
         name = f"ACK {src}->{self.rank}"
+        start = self.timeline.mark()
         self._await(dist.irecv(ack, src, group=self.ack_group),
                     f"WAIT on {name}" + ("" if b is None else f" B{b}"))
+        end = self.timeline.mark()
         got = int(ack.item())
         if b is not None and got != b:
             raise RuntimeError(f"{name} carried B{got}, the program waits on B{b}")
+        self.timeline.add("WAIT_ACK", r, got, start, end)
 
-    def finish(self, acks_left: int) -> None:
-        """End of a call: receive the ACKs no WAIT_ACK took, then see every
-        isend of this rank through, so that nothing is in flight."""
+    def finish(self, acks_left: int, r: int) -> None:
+        """End of a call (its entries in round ``r``): receive the ACKs no
+        WAIT_ACK took, then see every isend of this rank through, so that
+        nothing is in flight."""
         for _ in range(acks_left):
-            self.wait_ack(self.rank + 1, None)
+            with span("pipeline.WAIT_ACK"):
+                self.wait_ack(self.rank + 1, None, r)
         for b, sending in enumerate(self.sending):
             if sending is not None:
                 self._await(sending[0], f"the isend of SB[{b}]")
@@ -365,11 +393,21 @@ class RankPipelineForward:
     transport (module docstring). After a call, ``counts`` holds the token
     operations this rank performed (by name, ``SYNC_OPS``), ``stage_ms`` the
     device time of its Compute instruction in each round (on the card), and
-    ``messages`` a ``(what, round, ms)`` for each boundary message this rank
-    handled: ``"d2h"``, the copy into SB, and ``"h2d"``, the copy out of RB
-    (the host transport's; CUDA events on a card, the host clock on the
-    CPU); ``"send_recv"``, on the host clock, from the later of the isend's
-    and the irecv's posting to the payload in RB."""
+    ``timeline`` the call as ``(what, round, bid, start_ms, end_ms)``
+    entries, ms from the call's entry, round by round:
+
+    - ``"LD"``, ``"CP"``, ``"ST"``: each group's pass in a round, its bid the
+      buffer of its DataMove (None for CP). LD and ST hold the copies into
+      and out of the boundary buffers; the last rank's ST is the head.
+    - ``"WAIT_REQ"``, ``"WAIT_ACK"``: from before a WAIT's irecv is posted to
+      after its message has arrived. The ACKs that the call's end receives
+      carry round M.
+
+    On a card the times are CUDA events on the rank's stream, against an
+    anchor event synchronised at the call's entry, whose host time
+    (``time.monotonic_ns()``, shared by the ranks' processes) is
+    ``anchor_ns``; ``stage_ms`` are the CP entries' own spans. On the CPU
+    the times are the host clock's and ``stage_ms`` is empty."""
 
     def __init__(self, cfg: ArchConfig, plan: PipelinePlan, rank: int, device=None, *,
                  wait_timeout_s: float = 300.0):
@@ -401,9 +439,14 @@ class RankPipelineForward:
         self._msgs: Optional[_Messages] = None
         self.counts: dict[str, int] = {}
         self.stage_ms: list[float] = []
-        self.messages: list[tuple[str, int, float]] = []
+        self.timeline: list[tuple] = []
+        self.anchor_ns = 0
 
     def __call__(self, local_params: dict, tokens: torch.Tensor) -> Optional[torch.Tensor]:
+        with span("pipeline.call"):
+            return self._call(local_params, tokens)
+
+    def _call(self, local_params: dict, tokens: torch.Tensor) -> Optional[torch.Tensor]:
         cfg, plan, rank = self.cfg, self.plan, self.rank
         S, M, lps, L = plan.n_stages, plan.microbatches, plan.layers_per_stage, cfg.num_layers
         first, last = rank == 0, rank == S - 1
@@ -421,13 +464,13 @@ class RankPipelineForward:
         if msgs is None or msgs.key != (shape, dtype, dev):
             msgs = self._msgs = _Messages(rank, S, shape, dtype, dev, self.backend == "gloo",
                                           self._groups, self.wait_timeout_s)
-        msgs.messages = []
+        tl = msgs.timeline = _Timeline(cuda)
         inbuf = None if first else torch.empty(shape, dtype=dtype, device=dev)
         logits = (torch.empty((M, mb, s, cfg.vocab_size), dtype=torch.float32, device=dev)
                   if last else None)
         n_local = max(0, min(lps, L - rank * lps))
         counts = dict.fromkeys(SYNC_OPS, 0)
-        events: list[tuple] = []
+        bids: dict[Group, int] = {}  # the buffer of each group's DataMove this round
         pu = plan.programs[rank].clone()  # dynamic state is rewritten per round
         h: Optional[torch.Tensor] = None
         r = 0
@@ -438,12 +481,13 @@ class RankPipelineForward:
             elif inst.is_send:
                 msgs.send_ack(inst.pid, inst.bid)
             else:
-                msgs.wait_ack(inst.pid, inst.bid)
+                msgs.wait_ack(inst.pid, inst.bid, r)
 
         def move(group: Group, b: int) -> None:
             nonlocal h
+            bids[group] = b
             if group == Group.LD:  # take microbatch r in
-                h = embed(local_params["embed"], tokens[r]) if first else msgs.take(b, inbuf, r)
+                h = embed(local_params["embed"], tokens[r]) if first else msgs.take(b, inbuf)
             elif last:  # hand it on: the last stage writes the logits
                 logits[r].copy_(tf.final_logits(cfg, local_params, h).float())
             else:
@@ -451,23 +495,25 @@ class RankPipelineForward:
 
         def compute() -> None:
             nonlocal h
-            if cuda:
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
             h = tf.forward_layers(cfg, layers, 0, n_local, h)
-            if cuda:
-                ev[1].record()
-                events.append(ev)
+
+        @contextlib.contextmanager
+        def timed(group: Group):
+            start = tl.mark()
+            yield
+            tl.add(group.name, r, bids.get(group), start)
 
         walk_stage(pu, True, counts, sync=sync, move=move, compute=compute)
         for r in range(M):
-            walk_stage(pu, False, counts, sync=sync, move=move, compute=compute)
-        msgs.finish(self.acks_left)
+            walk_stage(pu, False, counts, sync=sync, move=move, compute=compute, group=timed)
+        with span("pipeline.finish"):
+            msgs.finish(self.acks_left, M)
         if cuda:
             torch.cuda.synchronize(dev)
         self.counts = counts
-        self.stage_ms = [a.elapsed_time(b) for a, b in events]
-        self.messages = msgs.messages
+        self.stage_ms = ([tl.ms(t0, t1) for what, _, _, t0, t1 in tl.entries if what == "CP"]
+                         if cuda else [])
+        self.timeline, self.anchor_ns = tl.read(), tl.anchor_ns
         return logits
 
 
@@ -476,8 +522,8 @@ def forward_rank(rank: int, device: torch.device, cfg: ArchConfig, plan: Pipelin
     """A rank body for ``spawn_stages``: one call of this rank's
     ``RankPipelineForward`` on ``local_params`` and ``tokens`` moved to
     ``device``. Returns the logits (on the CPU, the last rank only; None on
-    the others), ``counts``, ``stage_ms`` and ``messages``."""
+    the others), ``counts``, ``stage_ms`` and ``timeline``."""
     fn = RankPipelineForward(cfg, plan, rank, device, wait_timeout_s=wait_timeout_s)
     out = fn(tree_map(lambda x: x.to(device), local_params), tokens.to(device))
     return {"logits": None if out is None else out.cpu(), "counts": fn.counts,
-            "stage_ms": fn.stage_ms, "messages": fn.messages}
+            "stage_ms": fn.stage_ms, "timeline": fn.timeline}

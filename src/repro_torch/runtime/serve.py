@@ -28,6 +28,7 @@ from ..models import transformer as tf
 from .data import shard_for_host
 from .pspec import activation_policy, is_sharded
 from .sharding import ShardingPolicy, mesh_device
+from .spans import span
 
 
 def policy_context(policy: Optional[ShardingPolicy]):
@@ -81,7 +82,7 @@ def make_serve_step(cfg: ArchConfig, device=None, *,
     dev = policy_device(policy, device)
 
     def serve_step(params, caches, batch, pos):
-        with grad_off(policy), policy_context(policy):
+        with span("serve.step"), grad_off(policy), policy_context(policy):
             return tf.decode_step(cfg, params, caches, place_batch(batch, dev, policy), pos)
 
     return serve_step

@@ -558,22 +558,39 @@ def _rank_call(L, S, backend):
     return plan, M, one, want.cpu(), ranks
 
 
+def _check_timeline(r, M, first, last):
+    """A rank's timeline on the card: LD, CP and ST once a round, a WAIT_REQ
+    a round where REQs arrive, M + 2 WAIT_ACKs where they leave; round order,
+    each entry from start to end on the device clock, and ``stage_ms`` the CP
+    entries' spans."""
+    tl = r["timeline"]
+    kinds = [e[0] for e in tl]
+    assert kinds.count("LD") == kinds.count("CP") == kinds.count("ST") == M
+    assert kinds.count("WAIT_REQ") == M * (not first)
+    assert kinds.count("WAIT_ACK") == (M + 2) * (not last)
+    rounds = [e[1] for e in tl]
+    assert rounds == sorted(rounds)
+    assert all(0 <= start <= end for _, _, _, start, end in tl)
+    cp = [end - start for what, _, _, start, end in tl if what == "CP"]
+    assert cp == pytest.approx(r["stage_ms"], abs=1e-2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,S", [(4, 2), (5, 2)])
 def test_ranks_on_one_card_over_gloo_match_the_one_card_executor(cuda, L, S):
     """Two ranks on one card, the host transport (pinned SB/RB, each copy
     synchronized): the logits of the one-card executor (1e-5; the same
     kernels on the same inputs) and of the plain forward (2e-3), the
-    programs' token operations, a Compute time and the messages a round."""
+    programs' token operations, a Compute time and the timeline's entries a
+    round."""
     plan, M, one, want, ranks = _rank_call(L, S, "gloo")
     out = ranks[-1]["logits"]
     torch.testing.assert_close(out, one, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(out.reshape(want.shape), want, rtol=2e-3, atol=2e-3)
     assert [r["counts"] for r in ranks] == pp.program_sync_counts(plan)
     assert [len(r["stage_ms"]) for r in ranks] == [M] * S
-    kinds = [[m[0] for m in r["messages"]] for r in ranks]
-    assert [k.count("d2h") for k in kinds] == [M * (i < S - 1) for i in range(S)]
-    assert [k.count("h2d") for k in kinds] == [M * (i > 0) for i in range(S)]
+    for i, r in enumerate(ranks):
+        _check_timeline(r, M, first=i == 0, last=i == S - 1)
 
 
 @pytest.mark.gpu
@@ -591,8 +608,8 @@ def test_ranks_over_nccl_one_card_a_rank(cuda, S):
     torch.testing.assert_close(out.reshape(want.shape), want, rtol=2e-3, atol=2e-3)
     assert [r["counts"] for r in ranks] == pp.program_sync_counts(plan)
     assert [len(r["stage_ms"]) for r in ranks] == [M] * S
-    assert all(r["messages"] == [] or {m[0] for m in r["messages"]} == {"send_recv"}
-               for r in ranks)  # the device transport's copies stay on the cards
+    for i, r in enumerate(ranks):
+        _check_timeline(r, M, first=i == 0, last=i == S - 1)
 
 
 # ------------------------------------------- MoE and frontends, card vs CPU --

@@ -148,6 +148,49 @@ def test_executor_tokens_match_the_simulator():
     assert res.tokens_sent == sends == (S - 1) * (2 * M + 2)
 
 
+# the group whose span holds each token operation's span
+_SYNC_GROUP = {"WAIT_REQ": "LD", "SEND_ACK": "LD", "WAIT_ACK": "ST", "SEND_REQ": "ST"}
+
+
+def test_executor_spans_under_a_profiler():
+    """Under a CPU-only profiler the executor opens one ``pipeline.<op>``
+    span a token operation of ``program_sync_counts``, each inside a span of
+    its group, and one ``pipeline.LD`` / ``.CP`` / ``.ST`` span a group's
+    pass (the prologue's LD on every stage but the first)."""
+    S, M = 4, 2
+    _, cfg, tree = _setup()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        plan, fn, _, _ = _run(cfg, tree, S, M, mb=1, s=16, seed=2)
+    spans = [(e.name.removeprefix("pipeline."), e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("pipeline.")]
+    names = [n for n, _, _ in spans]
+    want = pp.program_sync_counts(plan)
+    for op in pp.SYNC_OPS:
+        assert names.count(op) == sum(c[op] for c in want) > 0, op
+    assert (names.count("LD"), names.count("CP"), names.count("ST")) == (
+        S * M + S - 1, S * M, S * M)
+    groups = {g: [(t0, t1) for n, t0, t1 in spans if n == g] for g in ("LD", "ST")}
+    for op, t0, t1 in spans:
+        if op in _SYNC_GROUP:
+            assert any(g0 <= t0 and t1 <= g1 for g0, g1 in groups[_SYNC_GROUP[op]]), op
+
+
+def test_spans_are_off_without_a_profiler(monkeypatch):
+    """With no profiler recording, ``span`` hands out one shared null context
+    and never enters ``record_function``."""
+    from repro_torch.runtime import spans
+
+    assert spans.span("pipeline.LD") is spans.span("serve.step")
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    _, cfg, tree = _setup()
+    plan, fn, _, _ = _run(cfg, tree, 3, 2, mb=1, s=16, seed=2)
+    assert fn.counts == pp.program_sync_counts(plan)
+
+
 def test_stack_stage_params_matches_jax():
     for L, S in [(4, 4), (5, 3), (5, 4)]:
         jcfg, cfg, tree = _setup(num_layers=L)

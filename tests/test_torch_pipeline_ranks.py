@@ -58,6 +58,22 @@ def _sends(counts):
     return sum(c["SEND_REQ"] + c["SEND_ACK"] for c in counts)
 
 
+def _check_timeline(timeline, M, first, last):
+    """A rank's ``timeline``: LD, CP and ST once a round, a WAIT_REQ a round
+    where REQs arrive, a WAIT_ACK a round where they leave (and the ACKs the
+    call's end takes, in round M); round order, each entry from start to end."""
+    kinds = [e[0] for e in timeline]
+    assert kinds.count("LD") == kinds.count("CP") == kinds.count("ST") == M
+    assert kinds.count("WAIT_REQ") == M * (not first)
+    assert kinds.count("WAIT_ACK") == (M + 2) * (not last)
+    assert set(kinds) <= {"LD", "CP", "ST", "WAIT_REQ", "WAIT_ACK"}
+    rounds = [e[1] for e in timeline]
+    assert rounds == sorted(rounds) and set(rounds) == set(range(M + (not last)))
+    assert all(0 <= start <= end for _, _, _, start, end in timeline)
+    assert all(bid is None for what, _, bid, _, _ in timeline if what == "CP")
+    assert all(bid in (0, 1) for what, _, bid, _, _ in timeline if what != "CP")
+
+
 @pytest.mark.parametrize("L,S", [(4, 4), (5, 3), (5, 4), (4, 3)])
 def test_ranks_match_jax_forward_and_the_one_card_executor(L, S):
     """Reduced h2o-danube-3-4b at s = 96, beyond its window 64, the cases of
@@ -81,11 +97,8 @@ def test_ranks_match_jax_forward_and_the_one_card_executor(L, S):
 
     assert [r["counts"] for r in res] == pp.program_sync_counts(plan)
     assert [r["stage_ms"] for r in res] == [[] for _ in range(S)]  # device times on the card
-    for i, r in enumerate(res):  # a D2H where a REQ leaves, a recv and an H2D where one arrives
-        kinds = [m[0] for m in r["messages"]]
-        assert kinds.count("d2h") == M * (i < S - 1)
-        assert kinds.count("send_recv") == kinds.count("h2d") == M * (i > 0)
-        assert all(ms >= 0 for _, _, ms in r["messages"])
+    for i, r in enumerate(res):  # LD, CP, ST a round; a WAIT_REQ a round where REQs arrive
+        _check_timeline(r["timeline"], M, first=i == 0, last=i == S - 1)
 
 
 def test_ranks_send_the_simulator_copys_tokens():

@@ -55,6 +55,27 @@ def test_make_serve_step_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("arch", [ARCH, RWKV])
+def test_serve_step_spans_under_a_profiler(arch):
+    """Under a CPU-only profiler a serve step opens ``serve.step`` once and
+    ``decode.attention`` and ``decode.ffn`` once a layer, inside it, and
+    computes what the untraced step computes."""
+    _, cfg, _, tp = _setup(seed=2, arch=arch)
+    step = serve.make_serve_step(cfg, device="cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    want, _ = step(tp, tf.init_cache(cfg, 2, 4, torch.float32, "cpu"), {"tokens": toks}, 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got, _ = step(tp, tf.init_cache(cfg, 2, 4, torch.float32, "cpu"), {"tokens": toks}, 0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name.startswith(("serve.", "decode."))]
+    names = [n for n, _, _ in spans]
+    assert names.count("serve.step") == 1
+    assert names.count("decode.attention") == names.count("decode.ffn") == cfg.num_layers
+    (_, s0, s1), = [sp for sp in spans if sp[0] == "serve.step"]
+    assert all(s0 <= t0 and t1 <= s1 for _, t0, t1 in spans)
+
+
 def _drive(engine, prompts, new_tokens):
     for p, n in zip(prompts, new_tokens):
         engine.submit(p, max_new_tokens=n)

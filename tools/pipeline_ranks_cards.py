@@ -8,11 +8,18 @@ on ``cuda:0`` (the host transport) and the one-card executor, in one call.
     python3 tools/pipeline_ranks_cards.py     # needs 4 cards
 
 Prints the card, each route's wall (host clock; the ranks from a barrier to
-the last rank's return), the ranks' Compute ms by stage and microbatch and
-their send-recv ms by message, and each route's logits against the plain
-forward's. Exits non-zero with fewer than 4 cards or if a route's logits are
-off the plain forward by more than 2e-3.
+the last rank's return) and its logits against the plain forward's, and from
+each rank's ``timeline`` (CUDA events on its stream): the Compute ms by stage
+and microbatch, the last stage's ST ms by microbatch (the head), each WAIT's
+stall by token, and the first microbatch's latency, from the earliest rank's
+call entry to the end of the last rank's round-0 ST, on the host clock that
+the ranks' processes share. On the NCCL route it then times a call under a
+torch profiler with the executor's spans on and with ``span`` forced off
+(``record_function`` a null context), in turns on, off, off, on. Exits
+non-zero with fewer than 4 cards or if a route's logits are off the plain
+forward by more than 2e-3.
 """
+import contextlib
 import subprocess
 import sys
 import time
@@ -24,10 +31,12 @@ import torch
 ARCH, STAGES, MICROBATCHES, MB, LEN, CALLS, SEED, TOL = "h2o-danube-3-4b", 4, 4, 1, 4608, 2, 0, 2e-3
 
 
-def rank_body(rank, device, cfg, plan, local, tokens, want, calls) -> dict:
+def rank_body(rank, device, cfg, plan, local, tokens, want, calls, traced) -> dict:
     """Copy this rank's params to its card, then ``calls`` calls after a
-    barrier each; the last rank holds its logits to ``want`` (on card 0)."""
+    barrier each; the last rank holds its logits to ``want`` (on card 0).
+    Then, if ``traced``, four calls under a profiler: spans on, off, off, on."""
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime import pipeline_ranks as pr
     from repro_torch.tree import tree_map
 
@@ -35,31 +44,66 @@ def rank_body(rank, device, cfg, plan, local, tokens, want, calls) -> dict:
     local = tree_map(lambda x: x.to(device), local)
     fn = pr.RankPipelineForward(cfg, plan, rank, device)
     tokens = tokens.to(device)
-    out = {"wall_ms": [], "stage_ms": [], "messages": []}
+    out = {"wall_ms": [], "stage_ms": [], "timeline": [], "anchor_ns": [], "traced_ms": []}
     for _ in range(calls):
         dist.barrier()
         t0 = time.perf_counter()
         logits = fn(local, tokens)
         out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
         out["stage_ms"].append(fn.stage_ms)
-        out["messages"].append(fn.messages)
+        out["timeline"].append(fn.timeline)
+        out["anchor_ns"].append(fn.anchor_ns)
     if logits is not None:
         out["max_diff"] = (logits.to(want.device) - want).abs().max().item()
+    del logits
+    record_function, off = torch.profiler.record_function, contextlib.nullcontext()
+    try:
+        for spans in ("on", "off", "off", "on") if traced else ():
+            torch.profiler.record_function = (record_function if spans == "on"
+                                              else lambda name: off)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                dist.barrier()
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                fn(local, tokens)
+                out["traced_ms"].append((spans, (time.perf_counter() - t0) * 1e3))
+    finally:
+        torch.profiler.record_function = record_function
     return out
+
+
+def _ms(values) -> str:
+    return " ".join(f"{ms:.1f}" for ms in values)
+
+
+def _durations(timeline, what) -> list:
+    """The ms of a rank's ``timeline`` entries of one kind, round by round."""
+    return [end - start for kind, _, _, start, end in timeline if kind == what]
 
 
 def report(name, ranks, card):
     last = ranks[-1]
     print(f"{name}: wall " + " / ".join(f"{ms:.1f}" for ms in last["wall_ms"])
           + f" ms, logits vs the plain forward max |diff| {last['max_diff']:.3e}  [{card}]")
+    S = len(ranks)
     for c in range(len(last["wall_ms"])):
+        tls = [r["timeline"][c] for r in ranks]
         print(f"  call {c + 1} Compute ms: " + "; ".join(
-            f"stage {i} " + " ".join(f"{ms:.1f}" for ms in r["stage_ms"][c])
-            for i, r in enumerate(ranks)))
-        print(f"  call {c + 1} send-recv ms: " + "; ".join(
-            f"{i - 1}->{i} " + " ".join(f"{ms:.2f}" for what, _, ms in r["messages"][c]
-                                      if what == "send_recv")
-            for i, r in enumerate(ranks) if i))
+            f"stage {i} {_ms(_durations(tls[i], 'CP'))}" for i in range(S)))
+        print(f"  call {c + 1} last stage's ST (the head) ms: {_ms(_durations(tls[-1], 'ST'))}")
+        print(f"  call {c + 1} WAIT stalls ms (device clock): " + "; ".join(
+            [f"REQ {i - 1}->{i} {_ms(_durations(tls[i], 'WAIT_REQ'))}" for i in range(1, S)]
+            + [f"ACK {i + 1}->{i} {_ms(_durations(tls[i], 'WAIT_ACK'))}" for i in range(S - 1)]))
+        entry_ns = min(r["anchor_ns"][c] for r in ranks)
+        st0 = next(e for w, rd, _, _, e in tls[-1] if w == "ST" and rd == 0)
+        first_ms = (last["anchor_ns"][c] - entry_ns) / 1e6 + st0
+        print(f"  call {c + 1} first microbatch's latency {first_ms:.1f} ms (the earliest "
+              f"rank's entry to the last rank's round-0 ST end); rank entries after the "
+              f"earliest " + " ".join(f"{(r['anchor_ns'][c] - entry_ns) / 1e6:.1f}"
+                                      for r in ranks) + " ms")
+    if last["traced_ms"]:
+        print("  a call under the profiler, spans on / off, the last rank's ms: " + ", ".join(
+            f"{spans} {ms:.1f}" for spans, ms in last["traced_ms"]))
 
 
 def main() -> int:
@@ -105,7 +149,7 @@ def main() -> int:
     for backend, name in (("nccl", "nccl ranks (rank r on cuda:r)"),
                           ("gloo", "gloo ranks (all on cuda:0)")):
         ranks = pr.spawn_stages(S, rank_body, cfg, plan, slices, tokens.cpu(), last_want, CALLS,
-                                backend=backend, timeout_s=600)
+                                backend == "nccl", backend=backend, timeout_s=600)
         report(name, ranks, card)
         diffs.append(ranks[-1]["max_diff"])
     return 0 if max(diffs) <= TOL else 1
