@@ -15,7 +15,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    state, also against the chunked plain version and its tile size; the INT8
    GEMM bit for bit, w row-major and column-major, at the TestGemmInt8
    inputs and at few-block long-K shapes that split K, and the int32 wrap
-   at K = 2^17);
+   at K = 2^17; the 3xTF32 fp32 GEMM against float64 beside torch's fp32
+   product at the pipeline's products, ragged shapes and a qwen3-0.6b
+   prefill);
 3. eight serving paths at full width, fp32, random weights from a seed, one
    after the other (each one's weights are freed before the next):
    qwen3-0.6b (28 layers, the flash-attention kernel), gemma3-4b (34 layers,
@@ -84,7 +86,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    backward of wkv6 and of the SSD scan at the training shape; each row of
    the kernels line says how (``timed``: ``events``, CUDA events around
    launches from Python, or ``graph``, device time from a CUDA graph); and
-   the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch;
+   the INT8 GEMM at each of ResNet-50's 22 shapes, one line a batch; the
+   3xTF32 GEMM at the pipeline's products beside torch's fp32 product
+   (and, a yardstick only, its TF32 product);
 9. dse: the paper's three-step DSE in the port (no kernel): ResNet-50 on the
    U50's 5 + 5 PUs (the Step 1/2/3 counts, DP-A/B/C); the float64 torch
    scorer on the card against the numpy scorer at 35, 1088 and 4224
@@ -114,7 +118,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Every launch count is set to 0 just before a path's first call and read just
 after its last: each of the path's kernels must have launched its expected
 number of times (per prefill call and decode step, per network pass, per
-pipeline and forward call, per train step), and the other kernels not at all. The last three
+pipeline and forward call, per train step), and the other kernels not at all. The 3xTF32
+GEMM's launches are counted from the same points: ``f32_a_forward`` a
+forward from MIN_ROWS rows (every full-size prefill, pipeline microbatch and
+no-grad loss), none in decode steps, gradient-recording steps or on
+DTensors, and on each rank of the pipeline its stage's products a
+microbatch; the CUDA products its route declined are printed beside. The last three
 lines are the
 kernels JSON, the card, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repository, it exits non-zero and prints
@@ -240,6 +249,18 @@ RESNET50_BATCHES, RESNET50_ITERS = (1, 16), 10
 # the gemm_int8 row of the kernels line: layer3's 3x3 conv, the most frequent
 # GEMM (6 a network), at batch 16: M = 16 x 256 positions, N = 256, K = 2304
 GEMM_TIMED = ("layer3.0.conv2", 16)
+# the gemm_f32 kernel (3xTF32): (label, M, K, N). The pipeline's products at
+# a microbatch of 1 x 4608 (q and o, k and v, gate and up, down, the head),
+# checked and timed; ragged M, N and K and a qwen3-0.6b prefill (4 x 1024),
+# checked. Each output's RMS error against float64 at most F32_ERR_FACTOR
+# times torch's fp32 product's on the same inputs (TF32 off); the bound's
+# peak is dense TF32's, the roofline rule's (cardbench/roofline.py)
+F32_TIMED = [("h2o q/o", 4608, 3840, 3840), ("h2o k/v", 4608, 3840, 960),
+             ("h2o gate/up", 4608, 3840, 10240), ("h2o down", 4608, 10240, 3840),
+             ("h2o head", 4608, 3840, 32000)]
+F32_CHECKED = F32_TIMED + [("ragged", 1001, 1004, 1000), ("ragged k", 4097, 3844, 996),
+                           ("narrow", 300, 36, 12), ("qwen3 up", 4096, 1024, 3072)]
+F32_ERR_FACTOR, F32_PEAK = 4.0, 495e12
 PIPE_ARCH = "h2o-danube-3-4b"
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN = 4, 4, 1, 4608
 PIPE_TOL = 2e-3  # tests/test_runtime.py MULTIDEV_SCRIPT, the JAX pipeline's own
@@ -256,7 +277,7 @@ GOPS_224EQ, U50_PEAK_TOPS = 7.72, 4.608  # examples/resnet50_dse.py
 # on four H100s at 700 W (PERF.md section 6, tools/pipeline_ranks_cards.py):
 # a warm call and the range of a stage's Compute; set beside gpu_deploy's
 # prediction for the same deployment
-PIPE_NCCL_CALL_MS, PIPE_NCCL_STAGE_MS = 1486.0, (196.6, 202.2)
+PIPE_NCCL_CALL_MS, PIPE_NCCL_STAGE_MS = 759.5, (97.6, 108.5)
 # the deploy phase's gates, as the JAX package's tests/test_deploy.py holds
 # them: a simulated rate within 10 % of the analytic one (5 % for decode,
 # :457-493), a switch-then-run equal to a fresh load-then-run at rel 1e-9 (:239)
@@ -606,6 +627,7 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     # ------------------------------------------------------------- prefill --
     for mod in kernel_mods.values():
         mod.launches = 0
+    f32_counts(zero=True)
     decode_steps = 0
     prefill = make_prefill(cfg)
     rng = np.random.default_rng(SEED)
@@ -644,6 +666,12 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     if got != {name: n * prefill_calls for name, n in per_prefill.items()}:
         raise AssertionError(f"prefill launches {got} != "
                              f"{', '.join(_per_call(per_prefill, prefill_calls, 'calls'))}")
+    f32_full, f32_per = f32_counts(), f32_a_forward(cfg)
+    if f32_full[0] != f32_per * prefill_calls:
+        raise AssertionError(f"{arch} prefill launched gemm_f32 {f32_full[0]} times, want "
+                             f"{f32_per} x {prefill_calls} calls")
+    report(f"{arch} gemm_f32 at prefill {PREFILL_BATCH}x{PREFILL_LEN}: {f32_full[0]} launches "
+           f"= {f32_per} x {prefill_calls} calls, {f32_full[1]} CUDA products declined")
     report(f"{arch} prefill {PREFILL_BATCH}x{PREFILL_LEN}: {prefill_ms:.3f} ms, "
            f"{PREFILL_BATCH * PREFILL_LEN / prefill_ms * 1e3:.0f} tokens/s, peak memory "
            f"{peak_gb:.2f} GB, launches {json.dumps(got)} = "
@@ -679,6 +707,12 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     want = {name: per_prefill.get(name, 0) * prefill_calls for name in kernel_mods}
     if at_prefill != want:
         raise AssertionError(f"{arch} prefill calls launched {at_prefill}, want {want}")
+    # the consistency prompts (CONSISTENCY_LEN rows, 4 x that, MOE_SHORT_LEN)
+    # stay below MIN_ROWS
+    f32_at_prefill = f32_counts()
+    if f32_at_prefill[0] != f32_full[0]:
+        raise AssertionError(f"{arch} consistency prefills launched gemm_f32 "
+                             f"{f32_at_prefill[0] - f32_full[0]} times, want none")
     step = make_serve_step(cfg)
 
     def decode(inputs: torch.Tensor) -> torch.Tensor:
@@ -773,6 +807,12 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     if launches != want:
         raise AssertionError(f"{arch} main path launched {launches}, want {want} ({how})")
     report(f"{arch} launches on the main path: {json.dumps(launches)} = {how}")
+    f32_end = f32_counts()
+    if f32_end[0] != f32_at_prefill[0]:
+        raise AssertionError(f"{arch} decode steps launched gemm_f32 "
+                             f"{f32_end[0] - f32_at_prefill[0]} times, want none")
+    report(f"{arch} gemm_f32 in {decode_steps} decode steps: 0 launches, "
+           f"{f32_end[1] - f32_at_prefill[1]} CUDA products declined")
 
     if profile:
         if frames:
@@ -787,7 +827,9 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     # prefill call (before the first decode step) and after serving
     split = {name: {"prefill": at_prefill[name], "prefill_full_shape": full_shape[name],
                     "decode": launches[name] - at_prefill[name]} for name in kernel_mods}
-    return launches, split
+    split["gemm_f32"] = {"prefill": f32_at_prefill[0], "prefill_full_shape": f32_full[0],
+                         "decode": 0, "declined_decode": f32_end[1] - f32_at_prefill[1]}
+    return {**launches, "gemm_f32": f32_end[0], "gemm_f32_declined": f32_end[1]}, split
 
 
 def check_flash_attention(fa_kernel, mha_reference, report) -> float:
@@ -1265,6 +1307,7 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
     ops_per_image = sum(2 * m * n * k * c for _, m, n, k, _, _, c in RESNET50_GEMMS)
     for mod in kernel_mods.values():
         mod.launches = 0
+    f32_counts(zero=True)
     passes = 0
     for batch in RESNET50_BATCHES:
         # each node its own operands, as each layer of the network has its own
@@ -1309,12 +1352,13 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
         del layers
     launches = {name: mod.launches for name, mod in kernel_mods.items()}
     want = {name: (nodes * passes if name == "gemm_int8" else 0) for name in kernel_mods}
-    if launches != want:
-        raise AssertionError(f"resnet50 path launched {launches}, want {want} ({nodes} x "
-                             f"{passes} network passes)")
+    if launches != want or f32_counts() != (0, 0):
+        raise AssertionError(f"resnet50 path launched {launches} and gemm_f32 "
+                             f"{f32_counts()} (launches, declined), want {want} and none "
+                             f"({nodes} x {passes} network passes)")
     report(f"resnet50 launches on the path: {json.dumps(launches)} = gemm_int8 {nodes} x "
            f"{passes} network passes")
-    return launches
+    return {**launches, "gemm_f32": 0, "gemm_f32_declined": 0}
 
 
 def time_gemm(gemm_kernel, hw, report) -> dict:
@@ -1411,6 +1455,64 @@ def gemm_shape_table(gemm_kernel, report) -> None:
                f"graph; library = torch._int_mm + epilogue, same w): {json.dumps(rows)}")
 
 
+def f32_operands(M, K, N, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, device="cuda", generator=g)
+    return x, torch.randn(K, N, device="cuda", generator=g) / K ** 0.5
+
+
+def check_gemm_f32(f32_kernel, report) -> list:
+    """The 3xTF32 GEMM at F32_CHECKED: its RMS error against float64 beside
+    torch's fp32 product's; raises beyond F32_ERR_FACTOR x. Returns a row a
+    shape."""
+    from repro_torch.kernels.gemm_f32.ref import rms_error
+
+    rows = []
+    for i, (label, M, K, N) in enumerate(F32_CHECKED):
+        x, w = f32_operands(M, K, N, SEED + 700 + i)
+        want = x.double() @ w.double()
+        fp32 = rms_error(x @ w, want)
+        err = rms_error(f32_kernel.gemm_f32_cuda(x, w), want)
+        rows.append({"shape": label, "M": M, "K": K, "N": N, "rms_err": err,
+                     "torch_fp32_rms_err": fp32})
+        report(f"check gemm_f32 {label} ({M}, {K}) x ({K}, {N}): rms err {err:.3e}, torch fp32 "
+               f"{fp32:.3e} (x{err / fp32:.2f})")
+        if not err <= F32_ERR_FACTOR * fp32:
+            raise AssertionError(f"gemm_f32 at {label}: rms err {err:.3e} beyond "
+                                 f"{F32_ERR_FACTOR} x torch fp32's {fp32:.3e}")
+        del x, w, want
+    return rows
+
+
+def time_gemm_f32(f32_kernel, report) -> list:
+    """At F32_TIMED, device time from CUDA graphs: the kernel, the plain
+    product (torch fp32, TF32 off) and, as a yardstick only, torch's TF32
+    product; beside the bound (2MNK at dense TF32's peak) and the three
+    products' bound."""
+    rows = []
+    for i, (label, M, K, N) in enumerate(F32_TIMED):
+        x, w = f32_operands(M, K, N, SEED + 800 + i)
+        flops = 2 * M * N * K
+        row = {"shape": label, "M": M, "K": K, "N": N, "bound_ms": flops / F32_PEAK * 1e3,
+               "bound_3pass_ms": 3 * flops / F32_PEAK * 1e3,
+               "kernel_ms": graph_ms(lambda: f32_kernel.gemm_f32_cuda(x, w), 10, 3),
+               "plain_ms": graph_ms(lambda: x @ w, 10, 3)}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            row["library_ms"] = graph_ms(lambda: x @ w, 10, 3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rates = {k[:-3]: flops / row[k] / 1e9 for k in ("kernel_ms", "plain_ms", "library_ms")}
+        report(f"timing gemm_f32 {label} ({M}, {K}) x ({K}, {N}), CUDA graphs: " + ", ".join(
+            f"{k} {row[k + '_ms']:.4f} ms ({r:.1f} TFLOP/s)" for k, r in rates.items())
+            + f" (library = torch TF32, a yardstick only); bound {row['bound_ms']:.4f} ms "
+            f"(dense TF32 {F32_PEAK / 1e12:.0f} TFLOP/s), three products "
+            f"{row['bound_3pass_ms']:.4f} ms")
+        rows.append(row)
+        del x, w
+    return rows
+
+
 def drive_pipeline(kernel_mods, report, profile=False) -> dict:
     """The pipeline executor at full width on one card: PIPE_ARCH, random fp32
     weights from SEED, PIPE_STAGES stages, PIPE_MICROBATCHES microbatches of
@@ -1457,6 +1559,7 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
 
     for mod in kernel_mods.values():
         mod.launches = 0
+    f32_counts(zero=True)
     out, pipe_ms = timed(lambda: fn(sparams, tokens))
     counts = fn.counts
     stage_ms = [sum(ms) / len(ms) for ms in fn.stage_ms]
@@ -1513,8 +1616,16 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
     if launches != want_l:
         raise AssertionError(f"pipeline path launched {launches}, want {want_l} ({how})")
     report(f"{PIPE_ARCH} launches on the pipeline path: {json.dumps(launches)} = {how}")
+    # a pipeline call takes each microbatch through every layer and the head
+    f32, f32_per = f32_counts(), f32_a_forward(cfg)
+    f32_how = f"{f32_per} x ({M} microbatches x {pipes} pipeline calls + {forwards} forwards)"
+    if f32 != (f32_per * (M * pipes + forwards), 0):
+        raise AssertionError(f"pipeline path launched gemm_f32 {f32[0]} times and declined "
+                             f"{f32[1]} products, want {f32_how} and none")
+    report(f"{PIPE_ARCH} gemm_f32 on the pipeline path: {f32[0]} launches = {f32_how}, "
+           f"0 declined")
     del params, sparams, fn
-    return launches
+    return {**launches, "gemm_f32": f32[0], "gemm_f32_declined": 0}
 
 
 def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> dict:
@@ -1524,8 +1635,9 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
     The last rank holds its logits to the plain forward's (``want``) and the
     one-card executor's (``one``) in place, both shared by CUDA IPC. Returns
     what the rank measured and counted: the wall of each call (host clock,
-    the barrier to its return), token operations, flash launches, Compute
-    times, the timeline, and the card's memory in use."""
+    the barrier to its return), token operations, flash launches, the
+    3xTF32 GEMM's launches and declined products a call, Compute times, the
+    timeline, and the card's memory in use."""
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.runtime import pipeline_ranks as pr
@@ -1535,12 +1647,14 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
     fn = pr.RankPipelineForward(cfg, plan, rank, device)
     tokens = tokens.to(device)
     fa_kernel.launches = 0
-    out = {"wall_ms": [], "counts": [], "stage_ms": [], "timeline": []}
+    out = {"wall_ms": [], "counts": [], "stage_ms": [], "timeline": [], "f32": []}
     for _ in range(calls):
         dist.barrier()
+        f32_counts(zero=True)
         t0 = time.perf_counter()
         logits = fn(local, tokens)  # ends in a synchronize
         out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["f32"].append(f32_counts())
         out["counts"].append(fn.counts)
         out["stage_ms"].append(fn.stage_ms)
         out["timeline"].append(fn.timeline)
@@ -1574,8 +1688,10 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
     flash kernel was built at setup, so the ranks only load it. Every count
     is set to 0 before the first call here and in each rank; flash must have
     launched lps x M times a call in each rank, L x M in all, and here L for
-    the forward and L x M a one-card call. Returns the counts, the ranks'
-    included."""
+    the forward and L x M a one-card call. The 3xTF32 GEMM is counted the
+    same way, and in each rank a call: its stage's products a microbatch
+    and, on the last rank, the head's; here a forward's a microbatch and
+    forward; no product declined. Returns the counts, the ranks' included."""
     from repro_torch import core
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -1614,6 +1730,7 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
 
     for mod in kernel_mods.values():
         mod.launches = 0
+    f32_counts(zero=True)
     want = tf.forward(cfg, params, {"tokens": tokens.reshape(M * mb, s)})[0]
     one_fn = pp.make_pipeline_forward(cfg, plan)
     one, one_ms = timed(lambda: one_fn(sparams, tokens))
@@ -1633,6 +1750,7 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
                             backend="gloo", timeout_s=PIPE_RANK_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     parent_launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    parent_f32 = f32_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.memory_reserved() / 1e9
     del want, one, slices, sparams, params, one_fn
@@ -1666,6 +1784,20 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
     if parent_launches != want_parent:
         raise AssertionError(f"this process launched {parent_launches}, want {want_parent} "
                              f"(flash {L} x (1 forward + 2 one-card calls x {M}))")
+    f32_fwd = f32_a_forward(cfg)
+    f32_stage = f32_a_forward(replace(cfg, num_layers=lps), head=False)
+    f32_head = f32_fwd - f32_a_forward(cfg, head=False)
+    f32_want = [(M * (f32_stage + f32_head * (i == S - 1)), 0) for i in range(S)]
+    for i, r in enumerate(ranks):
+        if r["f32"] != [f32_want[i]] * calls:
+            raise AssertionError(f"rank {i} gemm_f32 (launches, declined) a call {r['f32']}, "
+                                 f"want {f32_want[i]}: {M} microbatches x ({f32_stage} "
+                                 f"products a stage" + (f" + {f32_head} head)" if i == S - 1
+                                                        else ")"))
+    if parent_f32 != (f32_fwd * (1 + 2 * M), 0):
+        raise AssertionError(f"this process launched gemm_f32 {parent_f32[0]} times and "
+                             f"declined {parent_f32[1]}, want {f32_fwd} x (1 forward + 2 "
+                             f"one-card calls x {M}) and none")
 
     report(f"{PIPE_ARCH} ranks: {S} processes on one card over gloo, {M} microbatches of "
            f"{mb}x{s}: logits vs the plain forward max |diff| {last['max_diff']:.3e} (rtol=atol="
@@ -1674,7 +1806,9 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
     report(f"{PIPE_ARCH} ranks: tokens a call by rank {json.dumps(want_counts)} = the "
            f"programs', {sends} messages = the simulator copy's tokens_sent {sim.tokens_sent}; "
            f"flash launches by rank {[r['launches'] for r in ranks]} = {lps} x {M} x {calls} "
-           f"calls each")
+           f"calls each; gemm_f32 launches / declined a call by rank "
+           f"{[r['f32'][0] for r in ranks]} = {M} x {f32_stage} a stage (+ {M} x {f32_head} "
+           f"head on rank {S - 1}); {parent_f32[0]} here = {f32_fwd} x (1 + 2 x {M})")
     report(f"{PIPE_ARCH} ranks wall (host clock, a barrier to the last rank's return): "
            + " / ".join(f"{ms:.1f}" for ms in last["wall_ms"]) + " ms; the one-card executor "
            f"(host clock, synchronized) {one_ms:.1f} / {one_ms2:.1f} ms; spawn_stages "
@@ -1708,7 +1842,8 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
     how = (f"flash_attention {L} x (1 forward + 2 one-card calls x {M}) here + {S} ranks x "
            f"{lps} x {M} x {calls} calls")
     report(f"{PIPE_ARCH} launches on the rank pipeline path: {json.dumps(launches)} = {how}")
-    return launches
+    return {**launches, "gemm_f32": parent_f32[0] + calls * sum(w[0] for w in f32_want),
+            "gemm_f32_declined": 0}
 
 
 def launches_a_forward(cfg) -> dict:
@@ -1722,6 +1857,33 @@ def launches_a_forward(cfg) -> dict:
     for blk in layer_plan(cfg):
         out[kinds.get(blk.kind, "flash_attention")] += blk.n
     return dict(out)
+
+
+def f32_a_forward(cfg, head: bool = True) -> int:
+    """The 3xTF32 GEMM's launches in one forward of ``cfg`` from
+    ``gemm_f32.ops.MIN_ROWS`` rows, one a ``pspec.product``: q, k, v and o
+    of each attention (dense, MoE and shared layers), a gated MLP's three
+    products or a plain one's two (none in a MoE layer, whose experts are
+    moe.py's own einsums), an rwkv layer's eleven (the token shift's lora
+    three, r, k, v, g, o and the channel mix's three), a mamba layer's in and
+    out projections, and with ``head`` an untied head (a tied head is the
+    table's transpose, not K-major: declined)."""
+    from repro_torch.models.transformer import layer_plan
+
+    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    per = {"dense": 4 + mlp, "shared_attn": 4 + mlp, "moe": 4, "rwkv": 11, "mamba": 2}
+    return (sum(per[blk.kind] * blk.n for blk in layer_plan(cfg))
+            + int(head and not cfg.tie_embeddings))
+
+
+def f32_counts(zero: bool = False) -> tuple[int, int]:
+    """The 3xTF32 GEMM's launches and the CUDA products its route declined
+    (both set to 0 first with ``zero``)."""
+    from repro_torch.kernels.gemm_f32 import kernel, ops
+
+    if zero:
+        kernel.launches = ops.declined = 0
+    return kernel.launches, ops.declined
 
 
 def plain_forward(cfg):
@@ -1793,7 +1955,9 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
     twice beside a step's new state and gradients passes the card.
     Every launch count is set to 0 just before (a) and read at the end:
     each kernel its ``launches_a_forward`` a step, twice with remat, the
-    kernel that (b) replaces none there; the other kernels never. Returns
+    kernel that (b) replaces none there; the other kernels never; the
+    3xTF32 GEMM none in a step (each product records its gradient), a
+    forward's in each of (b)'s no-grad losses from MIN_ROWS rows. Returns
     the counts."""
     import tempfile
 
@@ -1849,6 +2013,7 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
 
     for mod in kernel_mods.values():
         mod.launches = 0
+    f32_counts(zero=True)
     # ------------------------------------------------- a. remat or not --
     runs = []
     for remat in (False, True, True):
@@ -2048,8 +2213,19 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
     if launches != want:
         raise AssertionError(f"{arch} training path launched {launches}, want {want} ({how})")
     report(f"{arch} launches on the training path: {json.dumps(launches)} = {how}")
+    from repro_torch.kernels.gemm_f32.ops import MIN_ROWS
+
+    # (b)'s losses of the batch and of its halves, without a gradient
+    losses = [rows for rows in ((b * s, b // 2 * s, b // 2 * s) if plain64_fn is not None
+                                else ()) if rows >= MIN_ROWS]
+    f32, f32_per = f32_counts(), f32_a_forward(cfg)
+    if f32[0] != f32_per * len(losses):
+        raise AssertionError(f"{arch} training path launched gemm_f32 {f32[0]} times, want "
+                             f"{f32_per} x {len(losses)} no-grad losses")
+    report(f"{arch} gemm_f32 on the training path: {f32[0]} launches = {f32_per} x "
+           f"{len(losses)} no-grad losses, {f32[1]} CUDA products declined (the steps')")
     del params, state0, p, st
-    return launches
+    return {**launches, "gemm_f32": f32[0], "gemm_f32_declined": f32[1]}
 
 
 def _free_port() -> int:
@@ -2075,7 +2251,8 @@ def drive_sharded(kernel_mods, report) -> dict:
     b. the same three sharded, with every launch count set to 0 just before
        and read just after: flash attention once a layer in the prefill,
        twice a layer in the step (remat), never in decode (plain einsums);
-       the other kernels never. Logits at SHARDED_TOL of (a)'s (and whether
+       the other kernels and the 3xTF32 GEMM (whose route declines
+       DTensors) never. Logits at SHARDED_TOL of (a)'s (and whether
        bit-equal), the same greedy tokens, loss at TRAIN_TOL and grad norm
        at TRAIN_PLAIN_GRAD_TOL relative;
     c. one-rank overhead: (a)'s and (b)'s prefill and decode step timed warm
@@ -2159,6 +2336,7 @@ def drive_sharded(kernel_mods, report) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for mod in kernel_mods.values():
             mod.launches = 0
+        f32_counts(zero=True)
         got, got_dec = serve(pre1, step1, sparams,
                              shard_cache(tf.init_cache(cfg, b, n, torch.float32), policy))
         after_serving = {name: mod.launches for name, mod in kernel_mods.items()}
@@ -2166,6 +2344,7 @@ def drive_sharded(kernel_mods, report) -> dict:
             sparams, adamw_init(opt_cfg, sparams), batch)
         torch.cuda.synchronize()
         counts = {name: mod.launches for name, mod in kernel_mods.items()}
+        f32 = f32_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         met1 = {k: float(gather({"x": v})["x"]) for k, v in met1.items()}
         if type(got).__name__ != "DTensor" or type(got_dec).__name__ != "DTensor":
@@ -2173,9 +2352,10 @@ def drive_sharded(kernel_mods, report) -> dict:
         got, got_dec = got.full_tensor(), got_dec.full_tensor()
         want_counts = {name: 0 for name in kernel_mods}
         want_counts["flash_attention"] = 3 * L  # prefill once a layer, the step twice (remat)
-        if counts != want_counts or after_serving["flash_attention"] != L:
+        if counts != want_counts or after_serving["flash_attention"] != L or f32[0]:
             raise AssertionError(f"sharded launches {counts} (after serving "
-                                 f"{after_serving}), want {want_counts} ({L} in serving)")
+                                 f"{after_serving}), gemm_f32 {f32[0]}, want {want_counts} "
+                                 f"({L} in serving) and no gemm_f32 (DTensors)")
         errs = {}
         for what, a, w in (("prefill", got, want), ("decode", got_dec, want_dec)):
             if not bool(torch.isfinite(a).all()) or a.shape != w.shape:
@@ -2198,8 +2378,8 @@ def drive_sharded(kernel_mods, report) -> dict:
                f"{n} decode steps {errs['decode']:.3e} (bit-equal: "
                f"{torch.equal(got_dec, want_dec)}), greedy tokens equal; train step nll "
                f"{met1['nll']:.7f} vs {met0['nll']:.7f}, grad norm {met1['grad_norm']:.7f} "
-               f"vs {met0['grad_norm']:.7f}; launches {json.dumps(counts)}; allocator peak "
-               f"{peak:.2f} GB")
+               f"vs {met0['grad_norm']:.7f}; launches {json.dumps(counts)}, gemm_f32 0 "
+               f"({f32[1]} CUDA products declined); allocator peak {peak:.2f} GB")
 
         # c. one-rank overhead
         c0 = tf.init_cache(cfg, b, n, torch.float32)
@@ -2250,7 +2430,7 @@ def drive_sharded(kernel_mods, report) -> dict:
                f"{json.dumps({k: getattr(cell, k) for k in keys})} ({time.time() - t0:.1f} s on "
                f"the host; {cell.link})")
     print(f"sharded phase: {time.time() - t_phase:.1f} s")
-    return counts
+    return {**counts, "gemm_f32": 0, "gemm_f32_declined": f32[1]}
 
 
 def dse_pool(n1: int, n2: int) -> list:
@@ -2775,6 +2955,8 @@ def main() -> int:
     from repro_torch.kernels import SOURCES, _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import mha_reference
+    from repro_torch.kernels.gemm_f32 import kernel as f32_kernel
+    from repro_torch.kernels.gemm_f32 import ops as f32_ops
     from repro_torch.kernels.gemm_int8 import kernel as gemm_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
     from repro_torch.kernels.rwkv6 import ops as wkv6_ops
@@ -2811,6 +2993,7 @@ def main() -> int:
     wkv6_err, wkv6_decode_err = check_wkv6(wkv6_kernel, report)
     ssd_err = check_ssd_scan(ssd_kernel, report)
     gemm_err = check_gemm_int8(gemm_kernel, report)
+    f32_checks = check_gemm_f32(f32_kernel, report)
 
     # ---------------------------------------------------------- main paths --
     kernel_mods = {"flash_attention": fa_kernel, "wkv6": wkv6_kernel, "ssd_scan": ssd_kernel,
@@ -2927,6 +3110,23 @@ def main() -> int:
                 "launches": launches["gemm_int8"], "max_abs_err": gemm_err,
                 **time_gemm(gemm_kernel, hw, report)}
     gemm_shape_table(gemm_kernel, report)
+    f32_shapes = time_gemm_f32(f32_kernel, report)
+    # the row's own numbers are the gate/up shape's (the pipeline's MLP);
+    # "shapes" holds each of the pipeline's products
+    f32_row = {"name": "gemm_f32", "route": "cuda",
+               "source": "src/repro_torch/kernels/gemm_f32/csrc/gemm_f32.cu",
+               "replaces": None, "why": "the models' dense fp32 products (pspec.product) from "
+               f"{f32_ops.MIN_ROWS} rows: cuBLAS ran them in fp32 on the CUDA cores",
+               "launches": sum(c["gemm_f32"] for c in by_path.values()),
+               "launches_by_path": by_kernel(by_path, "gemm_f32"),
+               "declined_by_path": by_kernel(by_path, "gemm_f32_declined"),
+               "prefill_decode_split": {arch: split[arch]["gemm_f32"] for arch in split},
+               "rms_err_over_torch_fp32": max(r["rms_err"] / r["torch_fp32_rms_err"]
+                                              for r in f32_checks),
+               **{key: f32_shapes[2][key] for key in ("plain_ms", "bound_ms", "library_ms")},
+               "ms": f32_shapes[2]["kernel_ms"], "bound_by": "operations",
+               "library": "torch.matmul with TF32 on (a yardstick only)", "timed": "graph",
+               "shapes": f32_shapes}
 
     # ------------------------------------------------------------------ dse --
     drive_dse(kernel_mods, report)
@@ -2938,7 +3138,7 @@ def main() -> int:
     drive_serve(kernel_mods, report)
     print(f"total: {time.time() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row]}))
+    print(json.dumps({"kernels": [fa_row, wkv_row, ssd_row, gemm_row, f32_row]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

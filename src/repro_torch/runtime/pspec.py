@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..kernels._sharded import is_dtensor as is_sharded
+from ..kernels.gemm_f32.ops import matmul
 from .sharding import divides, placements
 
 _POLICY: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
@@ -82,9 +83,11 @@ def _on_grad(x: torch.Tensor, fn) -> torch.Tensor:
 def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w``. For a DTensor ``x`` of three or more dimensions, over
     ``whole_rows(x)``, with the gradient of the result brought to whole rows
-    too (its backward flattens them as well)."""
+    too (its backward flattens them as well). Otherwise through
+    ``gemm_f32.ops.matmul``, which sends prefill-sized fp32 products on the
+    card to the 3xTF32 kernel and the rest to ``x @ w``."""
     if not is_sharded(x) or x.dim() < 3:
-        return x @ w
+        return matmul(x, w)
     return rows_grad(whole_rows(x) @ w)
 
 

@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, wkv6, the SSD scan, the INT8 PU GEMM)
-against their plain PyTorch versions, the pipeline executor on CUDA
+against their plain PyTorch versions, the 3xTF32 fp32 GEMM against float64
+beside torch's fp32 product and the route to it, the pipeline executor on CUDA
 streams against the plain forward, the executor across processes (ranks on
 one card over gloo; over nccl where there are two cards), the MoE FFN and the patch and frame
 frontends on the card against the same code on the CPU, and training on
@@ -21,6 +22,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.kernels.gemm_f32 import kernel as f32_kernel  # noqa: E402
+from repro_torch.kernels.gemm_f32 import ops as f32_ops  # noqa: E402
+from repro_torch.kernels.gemm_f32.ref import rms_error  # noqa: E402
 from repro_torch.kernels.gemm_int8 import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.gemm_int8 import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.gemm_int8.ref import gemm_int8_reference  # noqa: E402
@@ -1091,3 +1095,54 @@ def test_launch_plans_from_the_built_sources(cuda):
     assert gemm_kernel.kmajor_plan(128)["threads"] == 256
     with pytest.raises(ValueError):
         kernel.plan(48, torch.float32)
+
+
+# (M, K, N): h2o-danube-3-4b's pipeline products at one microbatch of 4608
+# rows (q and o, k and v, gate and up, down; the head), ragged M, N and K
+# against the kernel's 192 x 128 tiles and 32-k stages, and a qwen3-0.6b
+# prefill (4 x 1024 rows)
+F32_SHAPES = [(4608, 3840, 3840), (4608, 3840, 960), (4608, 3840, 10240), (4608, 10240, 3840),
+              (4608, 3840, 32000), (1001, 1004, 1000), (4097, 3844, 996), (300, 36, 12),
+              (4096, 1024, 3072)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", F32_SHAPES)
+def test_gemm_f32_within_fp32_error(cuda, M, K, N):
+    """The RMS error against float64 at most 4x torch's fp32 product's on
+    the same inputs (TF32 off); one launch a call."""
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x = torch.randn(M, K, device="cuda", generator=g)
+    w = torch.randn(K, N, device="cuda", generator=g) / K ** 0.5
+    want = x.double() @ w.double()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32 = rms_error(x @ w, want)
+    before = f32_kernel.launches
+    y = f32_kernel.gemm_f32_cuda(x, w)
+    torch.cuda.synchronize()
+    assert f32_kernel.launches == before + 1
+    assert rms_error(y, want) <= 4 * fp32, (rms_error(y, want), fp32)
+
+
+@pytest.mark.gpu
+def test_gemm_f32_route_on_the_card(cuda):
+    """A prefill-sized product launches the kernel, a decode step's (16 rows)
+    and one that autograd records launch nothing and count as declined; a
+    3-D x and a view of a wider row reach the kernel as rows."""
+    from repro_torch.runtime.pspec import product
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(512, 256, device="cuda", generator=g)
+    x = torch.randn(2, 384, 512, device="cuda", generator=g)
+    launches, declined = f32_kernel.launches, f32_ops.declined
+    y = product(x, w)
+    assert (f32_kernel.launches, f32_ops.declined) == (launches + 1, declined)
+    assert y.shape == (2, 384, 256)
+    torch.testing.assert_close(y, x @ w, rtol=1e-4, atol=1e-4)
+    wide = torch.randn(768, 520, device="cuda", generator=g)[:, :512]
+    torch.testing.assert_close(product(wide, w), wide @ w, rtol=1e-4, atol=1e-4)
+    assert f32_kernel.launches == launches + 2
+    product(torch.randn(16, 1, 512, device="cuda", generator=g), w)
+    with torch.enable_grad():
+        product(x, w.requires_grad_())
+    assert (f32_kernel.launches, f32_ops.declined) == (launches + 2, declined + 2)

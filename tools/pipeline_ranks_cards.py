@@ -11,9 +11,10 @@ Prints the card, each route's wall (host clock; the ranks from a barrier to
 the last rank's return) and its logits against the plain forward's, and from
 each rank's ``timeline`` (CUDA events on its stream): the Compute ms by stage
 and microbatch, the last stage's ST ms by microbatch (the head), each WAIT's
-stall by token, and the first microbatch's latency, from the earliest rank's
-call entry to the end of the last rank's round-0 ST, on the host clock that
-the ranks' processes share. On the NCCL route it then times a call under a
+stall by token, each rank's launches of the 3xTF32 GEMM and the products
+its route declined a call, and the first microbatch's latency, from the
+earliest rank's call entry to the end of the last rank's round-0 ST, on the
+host clock that the ranks' processes share. On the NCCL route it then times a call under a
 torch profiler with the executor's spans on and with ``span`` forced off
 (``record_function`` a null context), in turns on, off, off, on. Exits
 non-zero with fewer than 4 cards or if a route's logits are off the plain
@@ -37,6 +38,8 @@ def rank_body(rank, device, cfg, plan, local, tokens, want, calls, traced) -> di
     Then, if ``traced``, four calls under a profiler: spans on, off, off, on."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.gemm_f32 import kernel as f32_kernel
+    from repro_torch.kernels.gemm_f32 import ops as f32_ops
     from repro_torch.runtime import pipeline_ranks as pr
     from repro_torch.tree import tree_map
 
@@ -44,12 +47,15 @@ def rank_body(rank, device, cfg, plan, local, tokens, want, calls, traced) -> di
     local = tree_map(lambda x: x.to(device), local)
     fn = pr.RankPipelineForward(cfg, plan, rank, device)
     tokens = tokens.to(device)
-    out = {"wall_ms": [], "stage_ms": [], "timeline": [], "anchor_ns": [], "traced_ms": []}
+    out = {"wall_ms": [], "stage_ms": [], "timeline": [], "anchor_ns": [], "traced_ms": [],
+           "f32": []}
     for _ in range(calls):
         dist.barrier()
+        counts = f32_kernel.launches, f32_ops.declined
         t0 = time.perf_counter()
         logits = fn(local, tokens)
         out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["f32"].append((f32_kernel.launches - counts[0], f32_ops.declined - counts[1]))
         out["stage_ms"].append(fn.stage_ms)
         out["timeline"].append(fn.timeline)
         out["anchor_ns"].append(fn.anchor_ns)
@@ -91,6 +97,8 @@ def report(name, ranks, card):
         print(f"  call {c + 1} Compute ms: " + "; ".join(
             f"stage {i} {_ms(_durations(tls[i], 'CP'))}" for i in range(S)))
         print(f"  call {c + 1} last stage's ST (the head) ms: {_ms(_durations(tls[-1], 'ST'))}")
+        print(f"  call {c + 1} gemm_f32 launches / products declined by rank: " + "; ".join(
+            f"{r['f32'][c][0]} / {r['f32'][c][1]}" for r in ranks))
         print(f"  call {c + 1} WAIT stalls ms (device clock): " + "; ".join(
             [f"REQ {i - 1}->{i} {_ms(_durations(tls[i], 'WAIT_REQ'))}" for i in range(1, S)]
             + [f"ACK {i + 1}->{i} {_ms(_durations(tls[i], 'WAIT_ACK'))}" for i in range(S - 1)]))
@@ -121,7 +129,8 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     card = f"{torch.cuda.device_count()} x " + card.splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build({"flash_attention": SOURCES["flash_attention"]})  # the ranks only load it
+    # the ranks only load them
+    _build.build({name: SOURCES[name] for name in ("flash_attention", "gemm_f32")})
     cfg = get_config(ARCH)
     S, M, mb, s, V = STAGES, MICROBATCHES, MB, LEN, cfg.vocab_size
     params = tf.init_params(cfg, seed=SEED, dtype=torch.float32)
