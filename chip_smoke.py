@@ -459,17 +459,19 @@ def wkv6_inputs(b, s, H, P, seed, state_scale=0.0, model_decay=False):
             for a in (rr, kk, vv, ww, uu, st)]
 
 
-def ssd_inputs(b, s, H, P, N, seed):
+def ssd_inputs(b, s, H, P, N, seed, G=None):
     """TestSSDScan's distributions (xh, B, C ~ N(0, 1), dt = softplus(N(0, 1)),
     A = -exp(0.5 N(0, 1))), which are also how the model draws dt (its
     dt_bias is 0 and its dt projection N(0, 1)) and A (A_log ~ N(0, 0.5));
-    on the card, fp32."""
+    on the card, fp32. With ``G``, B and C are (b, s, G, N): G groups of
+    heads, head h reading group h // (H / G)."""
     r = np.random.default_rng(seed)
     xh = r.standard_normal((b, s, H, P), dtype=np.float32)
     dt = np.logaddexp(r.standard_normal((b, s, H), dtype=np.float32), np.float32(0.0))
     A = -np.exp(0.5 * r.standard_normal(H, dtype=np.float32))
-    B = r.standard_normal((b, s, N), dtype=np.float32)
-    C = r.standard_normal((b, s, N), dtype=np.float32)
+    bc = (b, s, N) if G is None else (b, s, G, N)
+    B = r.standard_normal(bc, dtype=np.float32)
+    C = r.standard_normal(bc, dtype=np.float32)
     return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
             for a in (xh, dt, A, B, C)]
 
@@ -832,12 +834,13 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     return {**launches, "gemm_f32": f32_end[0], "gemm_f32_declined": f32_end[1]}, split
 
 
-def check_flash_attention(fa_kernel, mha_reference, report) -> float:
+def check_flash_attention(fa_kernel, mha_reference, report) -> tuple[float, float]:
     """The flash-attention kernel against its plain version; returns the
     largest error at the shapes the paths run in fp32 (the qwen3-0.6b,
-    gemma3-4b, zamba2-7b, dbrx-132b, internvl2-76b and musicgen-large
-    prefills, gemma3's band beyond its window, the h2o-danube-3-4b
-    pipeline)."""
+    gemma3-4b, zamba2-7b, zamba2-7b-instruct, dbrx-132b, internvl2-76b and
+    musicgen-large prefills, gemma3's band beyond its window, the
+    h2o-danube-3-4b pipeline), and the error at zamba2-7b-instruct's shape
+    alone."""
     # (b, s, H, G, hd, window, dtype, tol, label): tests/test_kernels.py:28-85
     # shapes and tolerances, head dims 112 (zamba2-7b's shared blocks: MHA,
     # 32 heads) and 120 (h2o-danube-3-4b, windowed), plus the prefills'
@@ -848,7 +851,10 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
     # version's own error, both against fp32 math on the same bf16 inputs.
     # The h2o-danube-3-4b pipeline's shape (s 4608 beyond the window 4096, so
     # the window cuts keys) sums up to 4096 terms a row in another order:
-    # held to 1e-4 as the prefills are.
+    # held to 1e-4 as the prefills are. Zamba2-7B-Instruct's shared blocks
+    # (the benchmark's zamba2.prefill: 4 x 4096, 32 heads of 224) scale the
+    # scores by (224 / 2)^-1/2, a tenth element, which the plain version is
+    # given too.
     cases = [
         (2, 64, 4, 4, 32, None, torch.float32, 2e-5, "MHA"),
         (2, 64, 8, 2, 32, None, torch.float32, 2e-5, "GQA 4:1"),
@@ -868,6 +874,8 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         (PREFILL_BATCH, PREFILL_LEN, 32, 32, 112, None, torch.float32, 1e-4,
          "zamba2 prefill fp32"),
         (PIPE_MB, PIPE_LEN, 32, 8, 120, 4096, torch.float32, 1e-4, "h2o pipeline fp32"),
+        (4, 4096, 32, 32, 224, None, torch.float32, 1e-4, "zamba2-7b-instruct prefill fp32",
+         (224 / 2) ** -0.5),
         # the dbrx-132b, internvl2-76b and musicgen-large prefills (MHA at hd 64)
         (PREFILL_BATCH, PREFILL_LEN, 48, 8, 128, None, torch.float32, 1e-4,
          "dbrx prefill fp32"),
@@ -892,11 +900,12 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         (1, 99, 2, 1, 256, 20, torch.float32, 2e-5, "hd 256 window 20 ragged"),
         (1, 150, 4, 4, 112, None, torch.bfloat16, 3e-2, "hd 112 bf16 ragged"),
     ]
-    slice_err = 0.0
-    for i, (b, s, H, G, hd, window, dtype, tol, label) in enumerate(cases):
+    slice_err = instruct_err = 0.0
+    for i, (b, s, H, G, hd, window, dtype, tol, label, *scale) in enumerate(cases):
+        scale = scale[0] if scale else None
         q, k, v = qkv(b, s, H, G, hd, seed=SEED + i, dtype=dtype)
-        out = fa_kernel.flash_attention_cuda(q, k, v, causal=True, window=window)
-        ref = mha_reference(q, k, v, causal=True, window=window)
+        out = fa_kernel.flash_attention_cuda(q, k, v, causal=True, window=window, scale=scale)
+        ref = mha_reference(q, k, v, causal=True, window=window, scale=scale)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -911,9 +920,13 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
             extra = f"; vs fp32 math: kernel {k_err:.3e}, plain bf16 {p_err:.3e} (want <= 2x)"
         torch.cuda.synchronize()
         report(f"kernel check flash_attention {label} b={b} s={s} H={H} G={G} hd={hd} "
-               f"window={window} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol}){extra}")
+               f"window={window} scale={scale} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+               f"(tol {tol}){extra}")
         if label.endswith(("prefill fp32", "pipeline fp32", "band fp32")):
             slice_err = max(slice_err, err)
+        if label.startswith("zamba2-7b-instruct"):
+            instruct_err = err
+        del q, k, v, out, ref
     for s, hd, window in ((64, 32, None), (130, 120, None), (130, 120, 50)):
         q, k, v = qkv(1, s, 2, 2, hd, seed=SEED, dtype=torch.float32, ones_v=True)
         out = fa_kernel.flash_attention_cuda(q, k, v, window=window)
@@ -921,7 +934,7 @@ def check_flash_attention(fa_kernel, mha_reference, report) -> float:
         torch.testing.assert_close(out, torch.ones_like(out), rtol=1e-5, atol=1e-5)
     report("kernel check flash_attention rows sum to one (v = 1) at hd 32 and 120, window "
            "50: ok")
-    return slice_err
+    return slice_err, instruct_err
 
 
 def check_wkv6(wkv6_kernel, report) -> tuple[float, float]:
@@ -983,9 +996,10 @@ def check_wkv6(wkv6_kernel, report) -> tuple[float, float]:
     return prefill_err, decode_err
 
 
-def check_ssd_scan(ssd_kernel, report) -> float:
+def check_ssd_scan(ssd_kernel, report) -> tuple[float, float]:
     """The SSD-scan kernel against ssd_reference (y and the final state);
-    returns the error at the zamba2-7b prefill shape."""
+    returns the errors at the zamba2-7b prefill shape and at
+    zamba2-7b-instruct's, whose B and C come in two groups."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
     # (s, tile): the TestSSDScan (s, chunk) pairs, tests/test_kernels.py:148,
@@ -1039,7 +1053,21 @@ def check_ssd_scan(ssd_kernel, report) -> float:
     report(f"kernel check ssd_scan prefill b={b} s={s} H={H} P={P} N={N}: max_abs_err "
            f"(y, final state) {prefill_err:.3e} (tol {SSD_PREFILL_TOL}), max |y| "
            f"{want[0].abs().max().item():.2f}, max |h| {want[1].abs().max().item():.2f}")
-    return prefill_err
+
+    # zamba2-7b-instruct (the benchmark's zamba2.prefill): B and C (b, s, 2, N),
+    # heads 0-55 read group 0 and 56-111 group 1, the kernel's grouped load
+    b, s = 4, 4096
+    args = ssd_inputs(b, s, H, P, N, seed=SEED + 213, G=2)
+    got = ssd_kernel.ssd_scan_cuda(*args)
+    want = ssd_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=SSD_PREFILL_TOL, atol=SSD_PREFILL_TOL)
+    grouped_err = max_err(got, want)
+    report(f"kernel check ssd_scan zamba2-7b-instruct prefill b={b} s={s} H={H} P={P} N={N} "
+           f"G=2: max_abs_err (y, final state) {grouped_err:.3e} (tol {SSD_PREFILL_TOL}), "
+           f"max |y| {want[0].abs().max().item():.2f}")
+    return prefill_err, grouped_err
 
 
 def time_flash(fa_kernel, hw, label, b, s, H, G, hd, window, report) -> dict:
@@ -2989,9 +3017,9 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s")
 
     # --------------------------------------------------------- kernel check --
-    fa_err = check_flash_attention(fa_kernel, mha_reference, report)
+    fa_err, fa_instruct_err = check_flash_attention(fa_kernel, mha_reference, report)
     wkv6_err, wkv6_decode_err = check_wkv6(wkv6_kernel, report)
-    ssd_err = check_ssd_scan(ssd_kernel, report)
+    ssd_err, ssd_grouped_err = check_ssd_scan(ssd_kernel, report)
     gemm_err = check_gemm_int8(gemm_kernel, report)
     f32_checks = check_gemm_f32(f32_kernel, report)
 
@@ -3044,6 +3072,7 @@ def main() -> int:
               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
               "launches": launches["flash_attention"], "max_abs_err": fa_err,
+              "max_abs_err_hd224_scaled": fa_instruct_err,
               **{key: fa_shapes[0][key] for key in (
                   "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_cuda_ms",
                   "library_ms", "library", "timed")},
@@ -3100,7 +3129,8 @@ def main() -> int:
     ssd_row = {"name": "ssd_scan", "route": "cuda",
                "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                "replaces": "src/repro/kernels/ssd_scan/kernel.py:78",
-               "launches": launches["ssd_scan"], "max_abs_err": ssd_err, "ms": ssd_ms,
+               "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
+               "max_abs_err_groups2": ssd_grouped_err, "ms": ssd_ms,
                "plain_ms": ssd_plain_ms, "bound_ms": sbound_s * 1e3, "bound_by": sbound_by,
                "library_ms": None, "timed": "events", "plan": ssd_plan,
                "launches_by_path": by_kernel(by_path, "ssd_scan"), **ssd_back}

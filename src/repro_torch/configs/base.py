@@ -12,7 +12,7 @@ allocation).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import ClassVar, Optional
 
 
 @dataclass(frozen=True)
@@ -67,6 +67,13 @@ class ArchConfig:
     ssm_head_dim: int = 64
     attn_every: int = 0  # hybrid (zamba2): shared attn block after every N
     n_shared_attn: int = 2  # alternating shared blocks
+    # Zamba2's published layout (``HybridConfig``, whose fields these are):
+    # B/C groups of the SSD scan, the mamba layers a shared call precedes and
+    # the rank of each call's LoRA. The registered presets, whose fields are
+    # the JAX package's, read these defaults: one group, the ``attn_every`` plan.
+    ssm_groups: ClassVar[int] = 1
+    hybrid_layer_ids: ClassVar[tuple[int, ...]] = ()
+    adapter_rank: ClassVar[int] = 0
 
     # io frontend (vlm/audio: stubbed embeddings per the assignment)
     frontend: str = "tokens"  # tokens | patch_embed | frame_embed
@@ -161,6 +168,48 @@ class ArchConfig:
             moe_group=64,
             n_prefix_embeds=8,
         )
+
+
+@dataclass(frozen=True)
+class HybridConfig(ArchConfig):
+    """A hybrid stack in Zamba2's published layout (Zyphra/Zamba2-7B-Instruct,
+    ``modeling_zamba2``; arXiv:2411.15242), which the ``zamba2-7b`` preset
+    simplifies. Mamba2 layers whose B and C form ``ssm_groups`` groups (head
+    h reads group h // (H / G); the gated norm is per group of d_inner / G
+    channels); before each layer of ``hybrid_layer_ids`` a call into shared
+    block j % ``n_shared_attn`` (j: the call's index): RMS norm of
+    concat(x, the token embedding), attention with ``num_heads`` heads of
+    ``head_dim`` read from that 2 d_model width and scaled by
+    (head_dim / 2)^-1/2, then an RMS norm and a gated exact-GELU MLP (``act``
+    ``gelu_erf``) whose gate|up product adds the call's own rank
+    ``adapter_rank`` LoRA, and the call's own d_model x d_model projection.
+    No residual inside the call: its output is added to the next mamba
+    layer's input before that layer's norm."""
+    ssm_groups: int = 1
+    hybrid_layer_ids: tuple[int, ...] = ()
+    adapter_rank: int = 0
+
+    def __post_init__(self):
+        ids = self.hybrid_layer_ids
+        if list(ids) != sorted(set(ids)) or not all(0 <= i < self.num_layers for i in ids):
+            raise ValueError(f"hybrid_layer_ids {ids}: increasing mamba layer indices below "
+                             f"{self.num_layers}")
+        if self.ssm_heads % self.ssm_groups or self.d_inner % self.ssm_groups:
+            raise ValueError(f"{self.ssm_heads} heads and d_inner {self.d_inner} do not split "
+                             f"into {self.ssm_groups} groups")
+
+    def param_count(self) -> int:
+        d, f, r, v = self.d_model, self.d_ff, self.adapter_rank, self.vocab_size
+        di, GN, H, hd = self.d_inner, self.ssm_groups * self.ssm_state, self.ssm_heads, \
+            self.resolved_head_dim
+        conv = di + 2 * GN
+        mamba = d * (di + conv + H) + self.ssm_conv * conv + conv + 3 * H + di + di * d + d
+        attn = 2 * d * 3 * self.num_heads * hd + self.num_heads * hd * d
+        shared = 2 * d + attn + d + d * 2 * f + f * d
+        call = d * r + r * 2 * f + d * d
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return (emb + d + self.num_layers * mamba + self.n_shared_attn * shared
+                + len(self.hybrid_layer_ids) * call)
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

@@ -56,8 +56,9 @@
 //
 // Tiles: 8 warps of 32 q rows (256 a block) and 32-row kv tiles up to hd
 // 128; at hd 256 4 warps of 16 rows and 16-row kv tiles, to hold the output
-// accumulator in registers. Shared memory (fp32): hd 128 202,752 B, hd 120
-// 190,464 B, hd 112 178,176 B, hd 256 133,120 B: one block an SM.
+// accumulator in registers; at hd 224 8 warps of 16 rows and 16-row kv
+// tiles. Shared memory (fp32): hd 128 202,752 B, hd 120 190,464 B, hd 112
+// 178,176 B, hd 224 175,104 B, hd 256 133,120 B: one block an SM.
 // Registers and spills (nvcc -Xptxas -v, sm_90a, on an H100; chip_smoke.py
 // prints them): fp32 hd 16/32/64/112/120/128/256 use 119/141/176/226/244/
 // 243/228 registers, bf16 113/135/170/234/250/250/219; no instantiation
@@ -87,6 +88,15 @@ struct Tiles {
 template <>
 struct Tiles<256> {
   static constexpr int WARPS = 4;
+  static constexpr int MT = 1;
+  static constexpr int BK = 16;
+};
+// Zamba2's shared attention (hd 224): one 16-row q tile a warp and 16-row kv
+// tiles, as at 256, to hold the output accumulator in registers; 8 warps, as
+// the fp32 q tile of 128 rows and two stages of k and v fit one block
+template <>
+struct Tiles<224> {
+  static constexpr int WARPS = 8;
   static constexpr int MT = 1;
   static constexpr int BK = 16;
 };
@@ -465,6 +475,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b, int
     case 112: return launch<T, 112>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 120: return launch<T, 120>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
+    case 224: return launch<T, 224>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, b, s, t, H, G, causal, window, scale, stream);
     default: return -1;
   }
@@ -489,6 +500,7 @@ int plan_hd(int hd, int* out) {
     case 112: return plan_of<T, 112>(out);
     case 120: return plan_of<T, 120>(out);
     case 128: return plan_of<T, 128>(out);
+    case 224: return plan_of<T, 224>(out);
     case 256: return plan_of<T, 256>(out);
     default: return -1;
   }

@@ -20,7 +20,8 @@ from .. import _build
 from .._sharded import refuse_wrapped
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 112, 120, 128, 256)  # 112: zamba2-7b, 120: h2o-danube-3-4b
+# 112: zamba2-7b, 120: h2o-danube-3-4b, 224: Zamba2-7B as published (HybridConfig)
+HEAD_DIMS = (16, 32, 64, 112, 120, 128, 224, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

@@ -4,9 +4,12 @@
 // _ssd_kernel). Same function: for each (batch, head), with h the (N, P)
 // fp32 state starting at zero, a = A[head] < 0 and dt_t > 0,
 //   h <- exp(dt_t a) h + dt_t B_t^T x_t,   then   y_t = C_t h,
-// in time order; xh is (b, s, H, P), dt (b, s, H), A (H,), B and C (b, s, N)
-// shared by the H heads of a batch row. It returns y (b, s, H, P) and the
-// final state (b, H, N, P). The TPU kernel computes the same sums in the
+// in time order; xh is (b, s, H, P), dt (b, s, H), A (H,), B and C (b, s, G,
+// N): head h reads group h / (H / G) (G = 1: shared by the H heads of a batch
+// row, the JAX kernel's layout; G = 2: Zamba2 as published). It returns y (b,
+// s, H, P) and the final state (b, H, N, P). G moves only where a block reads
+// B and C (a step's N floats lie G N apart), so G = 1 copies and computes as
+// before the groups. The TPU kernel computes the same sums in the
 // chunked matrix form (C B^T . L . dt) X + exp(cum) C h_in per chunk; the
 // two agree to fp32 rounding, and both are held to the sequential
 // recurrence.
@@ -163,7 +166,7 @@ __global__ void __launch_bounds__(PC / CPT * R)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ C, float* __restrict__ y,
-                float* __restrict__ h_out, int s, int H, int P, int chunk, int vec) {
+                float* __restrict__ h_out, int s, int H, int P, int G, int chunk, int vec) {
   constexpr int NT = PC / CPT * R;  // threads
   constexpr int NQ = N / (4 * R);   // float4 groups of h a thread and column
   constexpr int WS = NT < 32 ? NT : 32;
@@ -184,8 +187,10 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const float* xb = x + (int64_t)bi * s * step + (int64_t)hd * P + p0;  // (bi, 0, hd, p0)
   float* yb = y + (int64_t)bi * s * step + (int64_t)hd * P + p0 + pc;
   const float* dtb = dt + (int64_t)bi * s * H + hd;  // (bi, 0, hd)
-  const float* Bb = B + (int64_t)bi * s * N;         // (bi, 0, 0)
-  const float* Cb = C + (int64_t)bi * s * N;
+  const int gn = G * N;                               // floats between two steps of B and C
+  const int64_t bc0 = (int64_t)bi * s * gn + (int64_t)(hd / (H / G)) * N;
+  const float* Bb = B + bc0;  // (bi, 0, the head's group, 0)
+  const float* Cb = C + bc0;
   const float a = A[hd];
   const int tiles = (s + chunk - 1) / chunk;
 
@@ -196,17 +201,25 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     float* sC = sB + chunk * N;
     float* sdt = sC + chunk * N;
     const int t0 = tile * chunk, nt = min(chunk, s - t0);
-    const float* Bt = Bb + (int64_t)t0 * N;  // nt * N contiguous floats, as is C's
-    const float* Ct = Cb + (int64_t)t0 * N;
+    const float* Bt = Bb + (int64_t)t0 * gn;  // nt rows of N floats, gn apart, as are C's
+    const float* Ct = Cb + (int64_t)t0 * gn;
     if (vec) {
       constexpr int XV = PC / 4;  // 16-byte pieces of a step's x
       for (int c = tid; c < nt * XV; c += NT) {
         const int tt = c / XV, k = 4 * (c - tt * XV);
         cp_async16(sx + tt * PC + k, xb + (int64_t)(t0 + tt) * step + k);
       }
-      for (int c = 4 * tid; c < nt * N; c += 4 * NT) {
-        cp_async16(sB + c, Bt + c);
-        cp_async16(sC + c, Ct + c);
+      if (gn == N) {  // one group: the tile's rows are contiguous
+        for (int c = 4 * tid; c < nt * N; c += 4 * NT) {
+          cp_async16(sB + c, Bt + c);
+          cp_async16(sC + c, Ct + c);
+        }
+      } else {
+        for (int c = 4 * tid; c < nt * N; c += 4 * NT) {
+          const int64_t src = (int64_t)(c / N) * gn + c % N;
+          cp_async16(sB + c, Bt + src);
+          cp_async16(sC + c, Ct + src);
+        }
       }
     } else {
       for (int c = tid; c < nt * PC; c += NT) {
@@ -214,8 +227,9 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         cp_async4(sx + tt * PC + k, xb + (int64_t)(t0 + tt) * step + k);
       }
       for (int c = tid; c < nt * N; c += NT) {
-        cp_async4(sB + c, Bt + c);
-        cp_async4(sC + c, Ct + c);
+        const int64_t src = (int64_t)(c / N) * gn + c % N;
+        cp_async4(sB + c, Bt + src);
+        cp_async4(sC + c, Ct + src);
       }
     }
     for (int c = tid; c < nt; c += NT) cp_async4(sdt + c, dtb + (int64_t)(t0 + c) * H);
@@ -295,7 +309,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 template <int N, int R, int PC, int CPT>
 int launch(const float* x, const float* dt, const float* A, const float* B, const float* C,
-           float* y, float* h_out, int b, int s, int H, int P, int chunk, int vec,
+           float* y, float* h_out, int b, int s, int H, int P, int G, int chunk, int vec,
            cudaStream_t stream) {
   constexpr int NT = PC / CPT * R;
   const int warps = (NT + 31) / 32;
@@ -309,8 +323,8 @@ int launch(const float* x, const float* dt, const float* A, const float* B, cons
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(H, b, P / PC), NT, smem, stream>>>(x, dt, A, B, C, y, h_out, s, H, P, chunk,
-                                                       vec);
+  kernel<<<dim3(H, b, P / PC), NT, smem, stream>>>(x, dt, A, B, C, y, h_out, s, H, P, G,
+                                                       chunk, vec);
   return cudaGetLastError();  // a refused launch (too much shared memory) shows here
 }
 
@@ -318,20 +332,21 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// xh, y: (b, s, H, P); dt: (b, s, H); A: (H,); B, C: (b, s, N); h_out:
-// (b, H, N, P); all fp32, contiguous and on the current device. The plan:
+// xh, y: (b, s, H, P); dt: (b, s, H); A: (H,); B, C: (b, s, G, N) with
+// H % G == 0; h_out: (b, H, N, P); all fp32, contiguous and on the current
+// device. The plan:
 // pc columns a block (P % pc == 0), r threads a column, cpt columns a thread,
 // a ring of STAGES tiles of `chunk` steps; the caller keeps its shared
 // memory within MAX_SMEM (the wrapper's plan does).
 extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* A, const float* B,
                             const float* C, float* y, float* h_out, int b, int s, int H, int P,
-                            int N, int pc, int r, int cpt, int chunk, void* stream) {
-  if (pc <= 0 || P % pc != 0 || chunk < 1) return -1;
+                            int N, int G, int pc, int r, int cpt, int chunk, void* stream) {
+  if (pc <= 0 || P % pc != 0 || chunk < 1 || G < 1 || H % G != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vec = aligned16(x) && aligned16(B) && aligned16(C);
 #define SSD_CASE(NN, RR, PCC, CC)                                                      \
   if (N == NN && r == RR && pc == PCC && cpt == CC)                                    \
-    return launch<NN, RR, PCC, CC>(x, dt, A, B, C, y, h_out, b, s, H, P, chunk, vec, st);
+    return launch<NN, RR, PCC, CC>(x, dt, A, B, C, y, h_out, b, s, H, P, G, chunk, vec, st);
   SSD_CASE(64, 2, 32, 2)  // zamba2-7b (P 64)
   SSD_CASE(16, 4, 16, 1)  // zamba2-7b reduced (P 32)
   SSD_CASE(4, 1, 4, 1)    // the TestSSDScan shapes and sweep: P 8 and 16, N 4 and 8

@@ -80,7 +80,7 @@ def _fwd():
     fn = _build.load("ssd_scan", SOURCE).ssd_scan_fwd
     # every pointer and the stream as c_void_p, or ctypes cuts them to 32 bits
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,8 +89,8 @@ def ssd_scan_cuda(
     xh: torch.Tensor,  # (b, s, H, P)
     dt: torch.Tensor,  # (b, s, H)
     A: torch.Tensor,  # (H,)
-    B: torch.Tensor,  # (b, s, N)
-    C: torch.Tensor,  # (b, s, N)
+    B: torch.Tensor,  # (b, s, N), or (b, s, G, N): head h reads group h // (H / G)
+    C: torch.Tensor,  # as B
     *,
     chunk: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,15 +99,19 @@ def ssd_scan_cuda(
     result."""
     global launches
     refuse_wrapped("ssd_scan_cuda", xh, dt, A, B, C)
-    if xh.dim() != 4 or B.dim() != 3:
-        raise ValueError(f"want xh (b,s,H,P) and B, C (b,s,N); got {tuple(xh.shape)}, "
-                         f"{tuple(B.shape)}")
+    if xh.dim() != 4 or B.dim() not in (3, 4):
+        raise ValueError(f"want xh (b,s,H,P) and B, C (b,s,N) or (b,s,G,N); got "
+                         f"{tuple(xh.shape)}, {tuple(B.shape)}")
     b, s, H, P = xh.shape
     N = B.shape[-1]
-    if dt.shape != (b, s, H) or A.shape != (H,) or B.shape != (b, s, N) or C.shape != B.shape:
-        raise ValueError(f"want dt (b,s,H) = {(b, s, H)}, A (H,) = {(H,)} and B, C (b,s,N) = "
-                         f"{(b, s, N)}; got {tuple(dt.shape)}, {tuple(A.shape)}, "
+    G = B.shape[2] if B.dim() == 4 else 1
+    bc = (b, s, G, N) if B.dim() == 4 else (b, s, N)
+    if dt.shape != (b, s, H) or A.shape != (H,) or B.shape != bc or C.shape != B.shape:
+        raise ValueError(f"want dt (b,s,H) = {(b, s, H)}, A (H,) = {(H,)} and B, C = "
+                         f"{bc}; got {tuple(dt.shape)}, {tuple(A.shape)}, "
                          f"{tuple(B.shape)}, {tuple(C.shape)}")
+    if G == 0 or H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups")
     if min(b, s, H) == 0:
         raise ValueError(f"empty input {tuple(xh.shape)}")
     if (P, N) not in SHAPES:
@@ -128,7 +132,7 @@ def ssd_scan_cuda(
     with torch.cuda.device(xh.device):  # xh's card for the launch; the caller's after it
         err = _fwd()(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), h_final.data_ptr(), b, s, H, P, N, pl["pc"], pl["r"], pl["cpt"],
+            y.data_ptr(), h_final.data_ptr(), b, s, H, P, N, G, pl["pc"], pl["r"], pl["cpt"],
             pl["chunk"], torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -137,9 +141,9 @@ def ssd_scan_cuda(
     return y, h_final
 
 
-def work(b: int, s: int, H: int, P: int, N: int):
+def work(b: int, s: int, H: int, P: int, N: int, G: int = 1):
     """(operations, bytes) of one fp32 call, as the kernel's bound counts
     them: decay*h + (dt x) B and C.h, 4 N P a step and head; xh, dt, A, B
-    and C read, y and the final state written once."""
-    n_in = b * s * H * P + b * s * H + H + 2 * b * s * N
+    and C (G groups) read, y and the final state written once."""
+    n_in = b * s * H * P + b * s * H + H + 2 * b * s * G * N
     return 4 * b * s * H * P * N, 4 * (n_in + b * s * H * P + b * H * N * P)

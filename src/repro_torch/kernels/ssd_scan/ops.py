@@ -40,12 +40,13 @@ class SSDScan(torch.autograd.Function):
 
 
 def ssd_scan(xh, dt, A, B, C):
-    """xh: (b, s, H, P); dt: (b, s, H); A: (H,); B, C: (b, s, N). Returns y
-    only, as the JAX package's ``ssd_scan`` does."""
+    """xh: (b, s, H, P); dt: (b, s, H); A: (H,); B, C: (b, s, N), or (b, s,
+    G, N) for G groups of heads. Returns y only, as the JAX package's
+    ``ssd_scan`` does."""
     if _sharded.is_dtensor(xh):
         return _sharded_ssd_scan(xh, dt, A, B, C)
     if _sharded.is_shape_only(xh):
-        flops, n_bytes = kernel.work(*xh.shape, B.shape[-1])
+        flops, n_bytes = kernel.work(*xh.shape, B.shape[-1], *B.shape[2:-1])
         return _sharded.shape_only("ssd_scan", flops, n_bytes, (xh,), xh, dt, A, B, C)
     if xh.is_cuda:
         if torch.is_grad_enabled() and any(x.requires_grad for x in (xh, dt, A, B, C)):

@@ -4,6 +4,11 @@ decay rate A < 0 and step sizes dt > 0:
     h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T      (h: (N, P))
     y_t = C_t . h_t
 
+B and C are (b, s, N), shared by every head, or (b, s, G, N), G groups of
+heads: head h reads group h // (H / G) (Zamba2 as published). A grouped call
+runs the one-group form on each group's heads and joins them, so G = 1
+computes as before.
+
 ``ssd_reference`` is the sequential recurrence of ``repro.kernels.ssd_scan.ref``
 (a loop over time): the oracle, and on the card the yardstick of the CUDA
 kernel. It also returns the final state, the kernel's second output.
@@ -18,9 +23,24 @@ import torch
 import torch.nn.functional as F
 
 
+def _by_group(fn, xh, dt, A, B, C, **kw):
+    """``fn`` on each group's heads (B and C (b, s, G, N)), the heads' outputs
+    joined in order: y (b, s, H, P) and, from ``ssd_reference``, the final
+    state (b, H, N, P)."""
+    G = B.shape[2]
+    hg = xh.shape[2] // G
+    outs = [fn(xh[:, :, g * hg:(g + 1) * hg], dt[:, :, g * hg:(g + 1) * hg],
+               A[g * hg:(g + 1) * hg], B[:, :, g], C[:, :, g], **kw) for g in range(G)]
+    if isinstance(outs[0], tuple):
+        return torch.cat([o[0] for o in outs], 2), torch.cat([o[1] for o in outs], 1)
+    return torch.cat(outs, 2)
+
+
 def ssd_reference(xh, dt, A, B, C):
-    """xh: (b, s, H, P); dt: (b, s, H) > 0; A: (H,) < 0; B, C: (b, s, N).
-    Returns (y: (b, s, H, P), h_final: (b, H, N, P)), both fp32."""
+    """xh: (b, s, H, P); dt: (b, s, H) > 0; A: (H,) < 0; B, C: (b, s, N) or
+    (b, s, G, N). Returns (y: (b, s, H, P), h_final: (b, H, N, P)), both fp32."""
+    if B.dim() == 4:
+        return _by_group(ssd_reference, xh, dt, A, B, C)
     b, s, H, P = xh.shape
     N = B.shape[-1]
     xh, dt, A, B, C = (a.float() for a in (xh, dt, A, B, C))
@@ -38,6 +58,8 @@ def ssd_reference(xh, dt, A, B, C):
 def ssd_chunked(xh, dt, A, B, C, chunk: int = 128):
     """Same inputs as ``ssd_reference``; returns y: (b, s, H, P). The sequence
     is padded to a whole number of chunks (zero dt: the state is unchanged)."""
+    if B.dim() == 4:
+        return _by_group(ssd_chunked, xh, dt, A, B, C, chunk=chunk)
     b, s, H, P = xh.shape
     N = B.shape[-1]
     if s % chunk:

@@ -26,14 +26,17 @@ from ..runtime.pspec import constrain, fit_grad, fit_split, is_sharded, product
 from .layers import apply_rope, normal, rmsnorm
 
 
-def init_attn(gen: torch.Generator, lead: tuple, cfg: ArchConfig, dtype, device) -> dict:
-    """Attention params with leading axes ``lead`` (the layer stack)."""
+def init_attn(gen: torch.Generator, lead: tuple, cfg: ArchConfig, dtype, device,
+              d_in: Optional[int] = None) -> dict:
+    """Attention params with leading axes ``lead`` (the layer stack); q, k and
+    v read ``d_in`` channels (d_model by default), the output has d_model."""
     d, H, G, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    s = 1.0 / math.sqrt(d)
+    d_in = d_in or d
+    s = 1.0 / math.sqrt(d_in)
     p = {
-        "wq": normal(gen, (*lead, d, H, hd), s, dtype, device),
-        "wk": normal(gen, (*lead, d, G, hd), s, dtype, device),
-        "wv": normal(gen, (*lead, d, G, hd), s, dtype, device),
+        "wq": normal(gen, (*lead, d_in, H, hd), s, dtype, device),
+        "wk": normal(gen, (*lead, d_in, G, hd), s, dtype, device),
+        "wv": normal(gen, (*lead, d_in, G, hd), s, dtype, device),
         "wo": normal(gen, (*lead, H, hd, d), 1.0 / math.sqrt(H * hd), dtype, device),
     }
     if cfg.qk_norm:
@@ -69,14 +72,15 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Ten
 
 
 def full_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, *, local: bool,
-                   window: Optional[int] = None) -> torch.Tensor:
-    """Causal (optionally windowed) self-attention over the full sequence."""
+                   window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """Causal (optionally windowed) self-attention over the full sequence;
+    scores scaled by ``scale`` (1 / sqrt(head_dim) by default)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     q = constrain(q, "attn_q")
     w = (window or cfg.window) if local else None
-    out = flash.flash_attention(q, k, v, causal=True, window=w)
+    out = flash.flash_attention(q, k, v, causal=True, window=w, scale=scale)
     out = constrain(out, "attn_out")
     return _out_proj(out, p["wo"])
 
@@ -104,6 +108,7 @@ def decode_attention(
     pos: int,  # current position
     *,
     local: bool,
+    scale: Optional[float] = None,  # of the scores; 1 / sqrt(head_dim) by default
 ) -> torch.Tensor:
     b = x.shape[0]
     H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -116,7 +121,7 @@ def decode_attention(
     if is_sharded(ck):
         _write_owned_slot(ck, slot, k)
         _write_owned_slot(cv, slot, v)
-        out = _sharded_decode(q, ck, cv, min(pos, cache_len - 1), G)
+        out = _sharded_decode(q, ck, cv, min(pos, cache_len - 1), G, scale)
         return _out_proj(out, p["wo"])
     ck[:, slot] = k[:, 0]
     cv[:, slot] = v[:, 0]
@@ -126,7 +131,7 @@ def decode_attention(
     # bf16 cache this costs an fp32 copy of the cache; fp32 is a no-op).
     qg = q.view(b, 1, G, H // G, hd)
     scores = torch.einsum("bugrq,btgq->bgrut", qg.float(), ck.float())
-    scores = scores * (1.0 / math.sqrt(hd))
+    scores = scores * (1.0 / math.sqrt(hd) if scale is None else scale)
     valid = torch.arange(cache_len, device=x.device) <= min(pos, cache_len - 1)
     scores = scores.masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
@@ -164,7 +169,7 @@ def _write_owned_slot(c, slot: int, new) -> None:
               device_mesh=mesh, redistribute_inputs=True)(c, new)
 
 
-def _sharded_decode(q, ck, cv, last: int, G: int):
+def _sharded_decode(q, ck, cv, last: int, G: int, scale: Optional[float] = None):
     """One token's attention over a DTensor cache in the flash-decoding
     layout: q gathered to every rank of a sequence shard, scores of the local
     positions, the row max and sum reduced across ranks, the probabilities
@@ -180,7 +185,7 @@ def _sharded_decode(q, ck, cv, last: int, G: int):
     qg = q.view(b, 1, G, H // G, hd)
     scores = torch.einsum("bugrq,btgq->bgrut", qg.float(), ck.float())
     scores = constrain(scores.reshape(b, H, 1, cache_len), "decode_scores")
-    scores = scores * (1.0 / math.sqrt(hd))
+    scores = scores * (1.0 / math.sqrt(hd) if scale is None else scale)
     valid = torch.arange(cache_len, device=scores.device) <= last
     scores = scores.masked_fill(~valid, -1e30)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))

@@ -37,6 +37,7 @@ def act_fn(name: str):
     return {
         "silu": F.silu,
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu_erf": F.gelu,  # exact: Hugging Face's "gelu" (Zamba2's shared MLP)
         "relu": F.relu,
         "sqrelu": lambda x: F.relu(x).square(),
     }[name]

@@ -1,7 +1,10 @@
 """Mamba2 (SSD) block [arXiv:2405.21060], as in ``repro.models.ssm``: per-head
 scalar decay A, input-dependent dt (softplus), B and C of size ``ssm_state``
-shared by the heads, a depthwise causal conv on (x, B, C), and a gated
-RMSNorm on the output.
+shared by a group of heads, a depthwise causal conv on (x, B, C), and a gated
+RMSNorm on the output. B and C come in ``cfg.ssm_groups`` groups, (..., G,
+N): head h reads group h // (H / G), and the gated norm runs over each group
+of d_inner / G channels. G = 1 is the JAX package's block; G = 2 is Zamba2 as
+published.
 
 The full-sequence scan goes through ``repro_torch.kernels.ssd_scan.ops``:
 the CUDA kernel on the card at every length, ``ssd_chunked`` (the JAX
@@ -26,14 +29,14 @@ def init_mamba(gen: torch.Generator, lead: tuple, cfg: ArchConfig, dtype, device
     """Mamba params with leading axes ``lead`` (the layer stack). ``A_log``,
     ``dt_bias`` and ``D`` are fp32 whatever ``dtype`` is."""
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * N
+    conv_dim = di + 2 * cfg.ssm_groups * N
 
     def zeros(shape, dt=dtype):
         return torch.zeros((*lead, *shape), dtype=dt, device=device)
 
     return {
-        # in_proj -> [z (di), x (di), B (N), C (N), dt (H)]
-        "w_in": normal(gen, (*lead, d, 2 * di + 2 * N + H), 1.0 / math.sqrt(d), dtype, device),
+        # in_proj -> [z (di), x (di), B (G N), C (G N), dt (H)]
+        "w_in": normal(gen, (*lead, d, di + conv_dim + H), 1.0 / math.sqrt(d), dtype, device),
         "conv_w": normal(gen, (*lead, cfg.ssm_conv, conv_dim), 0.5, dtype, device),
         "conv_b": zeros((conv_dim,)),
         "A_log": normal(gen, (*lead, H), 0.5, torch.float32, device),  # A = -exp(A_log)
@@ -45,8 +48,15 @@ def init_mamba(gen: torch.Generator, lead: tuple, cfg: ArchConfig, dtype, device
 
 
 def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
-    di, N = cfg.d_inner, cfg.ssm_state
-    return proj[..., :di], proj[..., di:2 * di + 2 * N], proj[..., 2 * di + 2 * N:]
+    di, GN = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * GN], proj[..., 2 * di + 2 * GN:]
+
+
+def _split_bc(cfg: ArchConfig, xbc: torch.Tensor):
+    """B and C of the conv's output, each (..., G, N)."""
+    di, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    return (xbc[..., di:di + G * N].unflatten(-1, (G, N)),
+            xbc[..., di + G * N:].unflatten(-1, (G, N)))
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -64,7 +74,9 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_out(p: dict, cfg: ArchConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    G = cfg.ssm_groups  # the norm's statistics per group of d_inner / G channels
+    y = rmsnorm((y * F.silu(z)).unflatten(-1, (G, -1)),
+                p["gate_norm"].unflatten(-1, (G, -1)), cfg.norm_eps).flatten(-2)
     return product(y, p["w_out"])
 
 
@@ -75,7 +87,7 @@ def mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     z, xbc, dtr = _split_proj(cfg, product(x, p["w_in"]))
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xh = constrain(xbc[..., :di].reshape(b, s, H, P), "ssm_x")
-    B, C = xbc[..., di:di + N], xbc[..., di + N:]
+    B, C = _split_bc(cfg, xbc)
     dt = _softplus(dtr.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     # the kernel takes contiguous fp32; the slices of xbc are neither in general
@@ -89,7 +101,7 @@ def mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def init_mamba_cache(cfg: ArchConfig, n_layers: int, batch: int, dtype, device) -> dict:
     """The conv history in ``dtype`` and the SSM state in fp32."""
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    conv_dim = cfg.d_inner + 2 * N
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * N
     return {
         "conv": torch.zeros((n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
                             device=device),
@@ -109,12 +121,14 @@ def mamba_decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict) ->
     cache["conv"].copy_(hist[:, 1:])
 
     xh = conv_out[..., :di].reshape(b, H, P).float()
-    B, C = conv_out[..., di:di + N].float(), conv_out[..., di + N:].float()
+    B, C = (t.float() for t in _split_bc(cfg, conv_out))
     dt = _softplus(dtr[:, 0].float() + p["dt_bias"])  # (b, H)
     decay = torch.exp(dt * -torch.exp(p["A_log"])[None, :])
-    upd = torch.einsum("bh,bn,bhp->bhnp", dt, B, xh)
     h = cache["ssm"]
+    # each head's group: (b, G, N) -> (b, H, N)
+    B, C = (t.repeat_interleave(H // cfg.ssm_groups, dim=1) for t in (B, C))
+    upd = torch.einsum("bh,bhn,bhp->bhnp", dt, B, xh)
     h.copy_(h * decay[:, :, None, None] + upd)
-    y = torch.einsum("bn,bhnp->bhp", C, h)
+    y = torch.einsum("bhn,bhnp->bhp", C, h)
     y = y + p["D"][None, :, None] * xh
     return _gated_out(p, cfg, y.reshape(b, 1, di).to(x.dtype), z)

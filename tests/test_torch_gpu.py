@@ -73,6 +73,11 @@ CASES = [
     (1, 150, 4, 4, 112, None, torch.bfloat16, 3e-2),
     # musicgen-large's MHA at hd 64 (32 heads, 32 kv heads) at a reduced length
     (2, 256, 32, 32, 64, None, torch.float32, 2e-5),
+    # Zamba2-7B's shared attention at hd 224 (MHA; 128 q rows and 16 kv rows
+    # a tile): ragged s, a window's edge mid-tile, bf16
+    (1, 150, 4, 4, 224, None, torch.float32, 2e-5),
+    (2, 99, 2, 2, 224, 40, torch.float32, 2e-5),
+    (1, 100, 2, 2, 224, None, torch.bfloat16, 3e-2),
 ]
 
 
@@ -99,6 +104,21 @@ def test_cuda_kernel_matches_plain(cuda, b, s, H, G, hd, window, dtype, tol):
     assert kernel.launches == before + 1
     ref = mha_reference(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_at_the_zamba2_shared_attention(cuda):
+    """Zamba2-7B's shared attention as a prefill call runs it: 4 x 4096, 32
+    heads of 224 (MHA), causal, scores scaled by (224 / 2)^-1/2, against the
+    plain version (4096-long sums in another order: 1e-4)."""
+    q, k, v = _qkv(4, 4096, 32, 32, 224, seed=224, dtype=torch.float32)
+    scale = (224 / 2) ** -0.5
+    before = kernel.launches
+    out = ops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = ops.plain_attention(q, k, v, causal=True, scale=scale)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -359,6 +379,48 @@ def test_ssd_kernel_tile_invariance_every_plan(cuda, P, N):
     xh, dt, A, B, C = args
     outs.append(ssd_kernel.ssd_scan_cuda(_offset_copy(xh), dt, A, _offset_copy(B),
                                          _offset_copy(C)))
+    torch.cuda.synchronize()
+    for y, h in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])
+
+
+def _grouped_inputs(b, s, H, P, N, G, seed):
+    """``_ssd_inputs`` with B and C in G groups of heads, (b, s, G, N)."""
+    xh, dt, A, _, _ = _ssd_inputs(b, s, H, P, N, seed)
+    r = np.random.default_rng(seed + 1)
+    B, C = (torch.from_numpy(r.standard_normal((b, s, G, N)).astype(np.float32)).cuda()
+            for _ in range(2))
+    return xh, dt, A, B, C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,H,P,N,tol", [(1, 4096, 112, 64, 64, 1e-4), (2, 77, 4, 16, 8, 2e-4)])
+def test_ssd_kernel_groups_match_recurrence(cuda, b, s, H, P, N, tol):
+    """Zamba2-7B's two B/C groups (head h reads group h // (H / 2)), at the
+    length of a prefill call: y and the final state against the sequential
+    recurrence, and the dispatch through the kernel."""
+    args = _grouped_inputs(b, s, H, P, N, 2, seed=s + H)
+    before = ssd_kernel.launches
+    y, h = ssd_kernel.ssd_scan_cuda(*args)
+    y_ops = ssd_ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 2
+    y_ref, h_ref = ssd_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=tol, atol=tol)
+    assert torch.equal(y_ops, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", ssd_kernel.SHAPES)
+def test_ssd_kernel_one_group_as_before(cuda, P, N):
+    """G moves only where B and C are read: B, C (b, s, N) and (b, s, 1, N)
+    give the same bits, and two equal groups give one group's bits."""
+    xh, dt, A, B, C = _ssd_inputs(2, 77, 4, P, N, seed=P + N + 2)
+    outs = [ssd_kernel.ssd_scan_cuda(xh, dt, A, B, C),
+            ssd_kernel.ssd_scan_cuda(xh, dt, A, B[:, :, None], C[:, :, None]),
+            ssd_kernel.ssd_scan_cuda(xh, dt, A, torch.stack([B, B], 2).contiguous(),
+                                     torch.stack([C, C], 2).contiguous())]
     torch.cuda.synchronize()
     for y, h in outs[1:]:
         assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])
@@ -1088,6 +1150,8 @@ def test_launch_plans_from_the_built_sources(cuda):
     assert kernel.plan(128, torch.float32) == {
         "threads": 256, "smem_bytes": 256 * 132 * 4 + 4 * 32 * 132 * 4, "bq": 256, "bk": 32}
     assert kernel.plan(256, torch.bfloat16)["threads"] == 128
+    assert kernel.plan(224, torch.float32) == {
+        "threads": 256, "smem_bytes": 128 * 228 * 4 + 4 * 16 * 228 * 4, "bq": 128, "bk": 16}
     ring = 4 * (128 + 64) * (64 + 16)
     assert gemm_kernel.kmajor_plan(64) == {"threads": 256, "wm": 32, "stages": 4,
                                            "smem_bytes": ring + 128 * 64,

@@ -162,6 +162,63 @@ def test_wrapper_refuses_bad_shapes_and_chunk():
         kernel.ssd_scan_cuda(t[0][:, :0], t[1][:, :0], t[2], t[3][:, :0], t[4][:, :0])
 
 
+def _grouped(s, H, G, N=8, seed=0):
+    """``_inputs`` with B and C in G groups of heads, (b, s, G, N)."""
+    xh, dt, A, _, _ = _inputs(s=s, H=H, N=N, seed=seed)
+    r = np.random.default_rng(seed + 1)
+    B, C = (r.standard_normal((1, s, G, N)).astype(np.float32) for _ in range(2))
+    return xh, dt, A, B, C
+
+
+def _grouped_recurrence(xh, dt, A, B, C):
+    """y and the final state by the explicit numpy recurrence, head h
+    reading group h // (H / G)."""
+    b, s, H, P = xh.shape
+    G, N = B.shape[2:]
+    grp = np.arange(H) // (H // G)
+    h = np.zeros((b, H, N, P), np.float32)
+    ys = []
+    for t in range(s):
+        decay = np.exp(dt[:, t] * A[None])
+        h = h * decay[:, :, None, None] + np.einsum("bh,bhn,bhp->bhnp", dt[:, t],
+                                                    B[:, t][:, grp], xh[:, t])
+        ys.append(np.einsum("bhn,bhnp->bhp", C[:, t][:, grp], h))
+    return np.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("s,H,G", [(64, 4, 2), (100, 4, 2), (100, 8, 4)])
+def test_groups_match_recurrence(s, H, G):
+    """B and C in G groups (Zamba2 as published): the recurrence, the
+    chunked form and the CPU dispatch against the explicit recurrence."""
+    arrs = _grouped(s, H, G, seed=s + G)
+    y_want, h_want = _grouped_recurrence(*arrs)
+    t = _torch(arrs)
+    y, h = ssd_reference(*t)
+    _close(y, y_want, TOL)
+    _close(h, h_want, TOL)
+    _close(ssd_chunked(*t), y_want, TOL)
+    _close(ops.ssd_scan(*t), y_want, TOL)
+
+
+def test_one_group_as_before():
+    """B and C of one group, (b, s, N) or (b, s, 1, N), give the same bits."""
+    xh, dt, A, B, C = _torch(_inputs(s=100, seed=9))
+    assert torch.equal(ssd_chunked(xh, dt, A, B, C),
+                       ssd_chunked(xh, dt, A, B[:, :, None], C[:, :, None]))
+    for a, b in zip(ssd_reference(xh, dt, A, B, C),
+                    ssd_reference(xh, dt, A, B[:, :, None], C[:, :, None])):
+        assert torch.equal(a, b)
+
+
+def test_wrapper_refuses_bad_groups():
+    xh, dt, A, B, C = _torch(_grouped(4, 4, 2, seed=3))
+    with pytest.raises(ValueError, match="do not split"):
+        kernel.ssd_scan_cuda(xh, dt, A, B.repeat(1, 1, 3, 1)[:, :, :3].contiguous(),
+                             C.repeat(1, 1, 3, 1)[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="want dt"):
+        kernel.ssd_scan_cuda(xh, dt, A, B, C[:, :, 0])
+
+
 def test_default_chunk_is_legal_for_every_shape():
     for P, N in kernel.SHAPES:
         assert 1 <= kernel.DEFAULT_CHUNK <= kernel.max_chunk(P, N)
