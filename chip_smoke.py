@@ -627,9 +627,7 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
                                device="cuda")
 
     # ------------------------------------------------------------- prefill --
-    for mod in kernel_mods.values():
-        mod.launches = 0
-    f32_counts(zero=True)
+    zero_launches(kernel_mods)
     decode_steps = 0
     prefill = make_prefill(cfg)
     rng = np.random.default_rng(SEED)
@@ -809,6 +807,8 @@ def drive_path(arch, kernel_mods, per_prefill, per_decode, report, profile):
     if launches != want:
         raise AssertionError(f"{arch} main path launched {launches}, want {want} ({how})")
     report(f"{arch} launches on the main path: {json.dumps(launches)} = {how}")
+    launches["flash_attention_wgmma"] = wgmma_launches(
+        f"{arch} main path", cfg.resolved_head_dim, launches["flash_attention"], report)
     f32_end = f32_counts()
     if f32_end[0] != f32_at_prefill[0]:
         raise AssertionError(f"{arch} decode steps launched gemm_f32 "
@@ -1333,9 +1333,7 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
 
     nodes = sum(row[-1] for row in RESNET50_GEMMS)
     ops_per_image = sum(2 * m * n * k * c for _, m, n, k, _, _, c in RESNET50_GEMMS)
-    for mod in kernel_mods.values():
-        mod.launches = 0
-    f32_counts(zero=True)
+    zero_launches(kernel_mods)
     passes = 0
     for batch in RESNET50_BATCHES:
         # each node its own operands, as each layer of the network has its own
@@ -1386,7 +1384,8 @@ def drive_resnet50(kernel_mods, report, profile=False) -> dict:
                              f"({nodes} x {passes} network passes)")
     report(f"resnet50 launches on the path: {json.dumps(launches)} = gemm_int8 {nodes} x "
            f"{passes} network passes")
-    return {**launches, "gemm_f32": 0, "gemm_f32_declined": 0}
+    wgmma = wgmma_launches("resnet50", None, 0, report)
+    return {**launches, "flash_attention_wgmma": wgmma, "gemm_f32": 0, "gemm_f32_declined": 0}
 
 
 def time_gemm(gemm_kernel, hw, report) -> dict:
@@ -1585,9 +1584,7 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
         end.synchronize()
         return out, start.elapsed_time(end)
 
-    for mod in kernel_mods.values():
-        mod.launches = 0
-    f32_counts(zero=True)
+    zero_launches(kernel_mods)
     out, pipe_ms = timed(lambda: fn(sparams, tokens))
     counts = fn.counts
     stage_ms = [sum(ms) / len(ms) for ms in fn.stage_ms]
@@ -1644,6 +1641,8 @@ def drive_pipeline(kernel_mods, report, profile=False) -> dict:
     if launches != want_l:
         raise AssertionError(f"pipeline path launched {launches}, want {want_l} ({how})")
     report(f"{PIPE_ARCH} launches on the pipeline path: {json.dumps(launches)} = {how}")
+    launches["flash_attention_wgmma"] = wgmma_launches(
+        f"{PIPE_ARCH} pipeline", cfg.resolved_head_dim, launches["flash_attention"], report)
     # a pipeline call takes each microbatch through every layer and the head
     f32, f32_per = f32_counts(), f32_a_forward(cfg)
     f32_how = f"{f32_per} x ({M} microbatches x {pipes} pipeline calls + {forwards} forwards)"
@@ -1674,7 +1673,7 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
     torch.backends.cudnn.allow_tf32 = False
     fn = pr.RankPipelineForward(cfg, plan, rank, device)
     tokens = tokens.to(device)
-    fa_kernel.launches = 0
+    fa_kernel.launches = fa_kernel.launches_wgmma = 0
     out = {"wall_ms": [], "counts": [], "stage_ms": [], "timeline": [], "f32": []}
     for _ in range(calls):
         dist.barrier()
@@ -1686,7 +1685,7 @@ def pipeline_rank(rank, device, cfg, plan, local, tokens, want, one, calls) -> d
         out["counts"].append(fn.counts)
         out["stage_ms"].append(fn.stage_ms)
         out["timeline"].append(fn.timeline)
-    out["launches"] = fa_kernel.launches
+    out["launches"], out["launches_wgmma"] = fa_kernel.launches, fa_kernel.launches_wgmma
     free, total = torch.cuda.mem_get_info(device)
     out["card_used_gb"] = (total - free) / 1e9
     out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
@@ -1731,8 +1730,9 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
     cfg = get_config(PIPE_ARCH)
     S, M, mb, s = PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB, PIPE_LEN
     L, V, calls = cfg.num_layers, cfg.vocab_size, PIPE_RANK_CALLS
-    if not _build._target(fa_kernel.SOURCE).exists():
-        raise AssertionError("the flash kernel is not built: the ranks would each run nvcc")
+    if not all(_build._target(src).exists() for src in (fa_kernel.SOURCE,
+                                                         fa_kernel.SOURCE_WGMMA)):
+        raise AssertionError("the flash kernels are not built: the ranks would each run nvcc")
     torch.cuda.reset_peak_memory_stats()
     params = tf.init_params(cfg, seed=SEED, dtype=torch.float32)
     param_gb = sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9
@@ -1756,9 +1756,8 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    for mod in kernel_mods.values():
-        mod.launches = 0
-    f32_counts(zero=True)
+    zero_launches(kernel_mods)
+    on_wgmma = fa_kernel.route(torch.float32, cfg.resolved_head_dim) == "wgmma"
     want = tf.forward(cfg, params, {"tokens": tokens.reshape(M * mb, s)})[0]
     one_fn = pp.make_pipeline_forward(cfg, plan)
     one, one_ms = timed(lambda: one_fn(sparams, tokens))
@@ -1778,6 +1777,9 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
                             backend="gloo", timeout_s=PIPE_RANK_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     parent_launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    parent_wgmma = wgmma_launches(f"{PIPE_ARCH} pipeline ranks (this process)",
+                                  cfg.resolved_head_dim, parent_launches["flash_attention"],
+                                  report)
     parent_f32 = f32_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.memory_reserved() / 1e9
@@ -1800,6 +1802,9 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
         if r["launches"] != lps * M * calls:
             raise AssertionError(f"rank {i} launched flash {r['launches']} times, want "
                                  f"{lps} x {M} x {calls}")
+        if r["launches_wgmma"] != r["launches"] * on_wgmma:
+            raise AssertionError(f"rank {i} launched the wgmma flash kernel "
+                                 f"{r['launches_wgmma']} of {r['launches']} times")
     if sends != sim.tokens_sent:
         raise AssertionError(f"the ranks send {sends} messages a call, the simulator copy "
                              f"{sim.tokens_sent} tokens")
@@ -1867,6 +1872,7 @@ def drive_pipeline_ranks(kernel_mods, report) -> dict:
 
     launches = {name: parent_launches[name] + (rank_launches if name == "flash_attention"
                                                else 0) for name in kernel_mods}
+    launches["flash_attention_wgmma"] = parent_wgmma + sum(r["launches_wgmma"] for r in ranks)
     how = (f"flash_attention {L} x (1 forward + 2 one-card calls x {M}) here + {S} ranks x "
            f"{lps} x {M} x {calls} calls")
     report(f"{PIPE_ARCH} launches on the rank pipeline path: {json.dumps(launches)} = {how}")
@@ -1912,6 +1918,34 @@ def f32_counts(zero: bool = False) -> tuple[int, int]:
     if zero:
         kernel.launches = ops.declined = 0
     return kernel.launches, ops.declined
+
+
+def zero_launches(kernel_mods) -> None:
+    """Sets every kernel's launch count to 0, the wgmma flash kernel's and
+    the 3xTF32 GEMM's among them."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    kernel.launches_wgmma = 0
+    f32_counts(zero=True)
+
+
+def wgmma_launches(label, hd, flash: int, report) -> int:
+    """The wgmma flash kernel's launches since ``zero_launches``, read at the
+    same point as the path's ``flash`` launches and held to what the route
+    gives at the path's head size ``hd``: every one of them where fp32 at
+    ``hd`` takes the wgmma kernel (every path runs fp32), else none."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    got = kernel.launches_wgmma
+    want = flash if hd is not None and kernel.route(torch.float32, hd) == "wgmma" else 0
+    if got != want:
+        raise AssertionError(f"{label} launched the wgmma flash kernel {got} times of "
+                             f"{flash} flash launches, want {want} (hd {hd})")
+    report(f"{label} flash_attention launches {flash}, of them on the wgmma kernel {got} "
+           f"(hd {hd})")
+    return got
 
 
 def plain_forward(cfg):
@@ -2039,9 +2073,7 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
     def rel(x, y):
         return abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
 
-    for mod in kernel_mods.values():
-        mod.launches = 0
-    f32_counts(zero=True)
+    zero_launches(kernel_mods)
     # ------------------------------------------------- a. remat or not --
     runs = []
     for remat in (False, True, True):
@@ -2241,6 +2273,8 @@ def drive_train(arch, depth, kernel_mods, report, profile=False) -> dict:
     if launches != want:
         raise AssertionError(f"{arch} training path launched {launches}, want {want} ({how})")
     report(f"{arch} launches on the training path: {json.dumps(launches)} = {how}")
+    launches["flash_attention_wgmma"] = wgmma_launches(
+        f"{arch} training path", cfg.resolved_head_dim, launches["flash_attention"], report)
     from repro_torch.kernels.gemm_f32.ops import MIN_ROWS
 
     # (b)'s losses of the batch and of its halves, without a gradient
@@ -2362,9 +2396,7 @@ def drive_sharded(kernel_mods, report) -> dict:
               f"{policy.batch_axes}) on {mesh}, params as DTensors; the unsharded port on "
               f"the same weights and tokens first")
         torch.cuda.reset_peak_memory_stats()
-        for mod in kernel_mods.values():
-            mod.launches = 0
-        f32_counts(zero=True)
+        zero_launches(kernel_mods)
         got, got_dec = serve(pre1, step1, sparams,
                              shard_cache(tf.init_cache(cfg, b, n, torch.float32), policy))
         after_serving = {name: mod.launches for name, mod in kernel_mods.items()}
@@ -2372,6 +2404,8 @@ def drive_sharded(kernel_mods, report) -> dict:
             sparams, adamw_init(opt_cfg, sparams), batch)
         torch.cuda.synchronize()
         counts = {name: mod.launches for name, mod in kernel_mods.items()}
+        wgmma = wgmma_launches(
+            f"{SHARDED_ARCH} sharded", cfg.resolved_head_dim, counts["flash_attention"], report)
         f32 = f32_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         met1 = {k: float(gather({"x": v})["x"]) for k, v in met1.items()}
@@ -2458,7 +2492,8 @@ def drive_sharded(kernel_mods, report) -> dict:
                f"{json.dumps({k: getattr(cell, k) for k in keys})} ({time.time() - t0:.1f} s on "
                f"the host; {cell.link})")
     print(f"sharded phase: {time.time() - t_phase:.1f} s")
-    return {**counts, "gemm_f32": 0, "gemm_f32_declined": f32[1]}
+    return {**counts, "flash_attention_wgmma": wgmma, "gemm_f32": 0,
+            "gemm_f32_declined": f32[1]}
 
 
 def dse_pool(n1: int, n2: int) -> list:
@@ -3070,13 +3105,18 @@ def main() -> int:
     # "shapes" holds every main-path shape
     fa_row = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+              "source_wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_attention_wgmma.cu",
               "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-              "launches": launches["flash_attention"], "max_abs_err": fa_err,
+              "launches": launches["flash_attention"],
+              "launches_wgmma": sum(c["flash_attention_wgmma"] for c in by_path.values()),
+              "wgmma_head_dims": list(fa_kernel.WGMMA_HEAD_DIMS), "max_abs_err": fa_err,
               "max_abs_err_hd224_scaled": fa_instruct_err,
               **{key: fa_shapes[0][key] for key in (
                   "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_cuda_ms",
                   "library_ms", "library", "timed")},
               "launches_by_path": by_kernel(by_path, "flash_attention"),
+              "launches_wgmma_by_path": by_kernel(by_path, "flash_attention_wgmma"),
               "shapes": fa_shapes}
 
     rcfg = get_config(RWKV_ARCH)

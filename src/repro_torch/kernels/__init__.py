@@ -11,6 +11,7 @@ from .gemm_int8 import kernel as _gemm_kernel
 from .rwkv6 import kernel as _wkv6_kernel
 from .ssd_scan import kernel as _ssd_kernel
 
-SOURCES = {"flash_attention": _flash_kernel.SOURCE, "wkv6": _wkv6_kernel.SOURCE,
+SOURCES = {"flash_attention": _flash_kernel.SOURCE,
+           "flash_attention_wgmma": _flash_kernel.SOURCE_WGMMA, "wkv6": _wkv6_kernel.SOURCE,
            "ssd_scan": _ssd_kernel.SOURCE, "gemm_int8": _gemm_kernel.SOURCE,
            "gemm_f32": _gemm_f32_kernel.SOURCE}

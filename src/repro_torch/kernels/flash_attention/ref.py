@@ -10,11 +10,12 @@ CPU dispatch (``ops.plain_attention``) picks among the three as JAX's does.
 All three are differentiable. Scores and softmax statistics are fp32 for
 fp32 and bf16 inputs, as in JAX, and float64 for float64 inputs (gradcheck).
 
-``mha_tf32`` emulates the CUDA kernel's numerical route on fp32 inputs (its
+``mha_tf32`` emulates the CUDA kernels' numerical route on fp32 inputs (its
 products as 3xTF32 on the tensor cores, or as plain TF32 with
-``split=False``), and ``kept_pairs`` counts the (row, column) pairs a mask
-keeps, for a kernel's bound. The tests and ``chip_smoke.py`` use them; the
-main path does not.
+``split=False``; with ``kv_tile``, the wgmma kernel's accumulation tile by
+tile), and ``kept_pairs`` counts the (row, column) pairs a mask keeps, for a
+kernel's bound. The tests and ``chip_smoke.py`` use them; the main path does
+not.
 """
 from __future__ import annotations
 
@@ -185,6 +186,68 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, small.view(torch.float32)
 
 
+def toward_zero(v: torch.Tensor) -> torch.Tensor:
+    """float64 ``v`` to fp32, rounded toward zero, as the tensor cores add to
+    their fp32 accumulators."""
+    t = v.float()
+    return torch.where(t.double().abs() > v.abs(), torch.nextafter(t, torch.zeros_like(t)), t)
+
+
+K_STEP = 8  # wgmma's k for TF32
+
+
+def _wgmma_sum(acc: Optional[torch.Tensor], a: tuple, b: tuple) -> torch.Tensor:
+    """``acc + a @ b`` as one wgmma accumulator takes it: k steps of 8, each
+    step's three products (a_small b_big, a_big b_small, a_big b_big) summed
+    exactly and added to the fp32 accumulator rounded toward zero. ``a`` and
+    ``b`` are the (big, small) splits of (..., m, k) and (..., k, n); ``acc``
+    None starts afresh."""
+    (ab, as_), (bb, bs) = a, b
+    out = acc
+    for k0 in range(0, ab.shape[-1], K_STEP):
+        sl = slice(k0, k0 + K_STEP)
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            prod = x[..., sl].double() @ y[..., sl, :].double()
+            out = toward_zero(prod if out is None else out.double() + prod)
+    return out
+
+
+def _mha_wgmma(q, k, v, causal, window, sc, kv_tile, fresh_partials):
+    """``mha_tf32`` as the wgmma kernel accumulates, kv tile by kv tile:
+    S = Q K^T in one accumulator over hd, the online softmax in base 2, and
+    each tile's P V in a fresh partial added, rounded to nearest, to the
+    rescaled output (one FFMA); ``fresh_partials=False`` keeps P V in one
+    accumulator over every tile instead, rescaled in place."""
+    b, s, H, hd = q.shape
+    t, G = k.shape[1], k.shape[2]
+    rep = H // G
+    qs = split_tf32(q.float().reshape(b, s, G, rep, hd).permute(0, 2, 3, 1, 4))
+    ks = split_tf32(k.float().permute(0, 2, 3, 1)[:, :, None])  # (b, G, 1, hd, t)
+    vs = split_tf32(v.float().permute(0, 2, 1, 3)[:, :, None])  # (b, G, 1, t, hd)
+    mask = _mask(s, t, causal, window, q.device)
+    scale_log2 = torch.tensor(sc * math.log2(math.e), dtype=torch.float32)
+    m = torch.full((b, G, rep, s, 1), -1e30)
+    l = torch.zeros((b, G, rep, s, 1))
+    o = torch.zeros((b, G, rep, s, hd))
+    for k0 in range(0, t, kv_tile):
+        cols = slice(k0, k0 + kv_tile)
+        x = _wgmma_sum(None, qs, tuple(p[..., cols] for p in ks)) * scale_log2
+        x = x.masked_fill(~mask[:, cols], -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        base = torch.where(m_new == -1e30, 0.0, m_new)  # a row masked so far: exp2 gives 0
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(x - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = (split_tf32(p), tuple(y[..., cols, :] for y in vs))
+        if fresh_partials:
+            o = (o.double() * alpha.double() + _wgmma_sum(None, *pv).double()).float()
+        else:
+            o = _wgmma_sum(o * alpha, *pv)
+        m = m_new
+    out = o / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, H, hd)
+
+
 def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
     """``einsum(eq, a, b)`` with TF32 operands and fp32 sums: with ``split``
     the 3xTF32 sum a_small.b_big + a_big.b_small + a_big.b_big, else one
@@ -198,14 +261,20 @@ def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, split: bool) -> tor
 
 
 def mha_tf32(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-             scale: Optional[float] = None, split: bool = True) -> torch.Tensor:
+             scale: Optional[float] = None, split: bool = True,
+             kv_tile: Optional[int] = None, fresh_partials: bool = True) -> torch.Tensor:
     """``mha_reference`` on fp32 inputs with the kernel's products: S = Q K^T
     and O = P V on TF32 operands (3xTF32 with ``split``, else plain TF32),
-    P = exp(S - max) unnormalised, O divided by the row sum at the end."""
+    P = exp(S - max) unnormalised, O divided by the row sum at the end, each
+    product's sum exact. With ``kv_tile`` (3xTF32 only) the wgmma kernel's
+    accumulation instead (``_mha_wgmma``): tiles of ``kv_tile`` kv rows,
+    truncating adds, and ``fresh_partials`` as there."""
     b, s, H, hd = q.shape
     t, G = k.shape[1], k.shape[2]
     rep = H // G
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if kv_tile is not None:
+        return _mha_wgmma(q, k, v, causal, window, sc, kv_tile, fresh_partials)
     qh = q.float().reshape(b, s, G, rep, hd)
     scores = _tf32_product("bsgrq,btgq->bgrst", qh, k.float(), split) * sc
     mask = _mask(s, t, causal, window, q.device)

@@ -18,20 +18,13 @@ from typing import Optional
 
 import torch
 
-from ..flash_attention.ref import split_tf32, tf32_round
+from ..flash_attention.ref import K_STEP, split_tf32, tf32_round, toward_zero
 
-K_STEP = 8  # wgmma's k for TF32
 PROMOTE = 4  # k steps a stage: the kernel's partial sums cover 32 k
 
 
 def gemm_float64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.double() @ w.double()
-
-
-def _toward_zero(v: torch.Tensor) -> torch.Tensor:
-    """float64 ``v`` to fp32, rounded toward zero."""
-    t = v.float()
-    return torch.where(t.double().abs() > v.abs(), torch.nextafter(t, torch.zeros_like(t)), t)
 
 
 def gemm_tf32(x: torch.Tensor, w: torch.Tensor, *, split: bool = True,
@@ -49,7 +42,7 @@ def gemm_tf32(x: torch.Tensor, w: torch.Tensor, *, split: bool = True,
     for i in range(steps):
         sl = slice(i * K_STEP, (i + 1) * K_STEP)
         for a, b in terms:
-            part = _toward_zero(part.double() + a[:, sl] @ b[sl])
+            part = toward_zero(part.double() + a[:, sl] @ b[sl])
         if promote is not None and ((i + 1) % promote == 0 or i == steps - 1):
             out, part = out + part, torch.zeros_like(out)
     return out if promote is not None else part

@@ -96,6 +96,22 @@ def test_cpu_dispatch_takes_plain_version():
     torch.testing.assert_close(out, banded_attention(q, k, v, window=20), rtol=0, atol=0)
 
 
+# (dtype, head size) -> the kernel a call takes, one case a built head size
+# and dtype: fp32 at 64 (musicgen-large), 112 (zamba2-7b), 120
+# (h2o-danube-3-4b) and 128 (qwen3, dbrx, grok, internvl2, starcoder2) on
+# wgmma; hd 16, 32, 224 (Zamba2-7B as published) and 256 (gemma3, beyond a
+# consumer's registers) and all of bf16 on mma.sync
+ROUTES = ([(torch.float32, hd, "wgmma") for hd in (64, 112, 120, 128)]
+          + [(torch.float32, hd, "mma.sync") for hd in (16, 32, 224, 256)]
+          + [(torch.bfloat16, hd, "mma.sync") for hd in (16, 32, 64, 112, 120, 128, 224, 256)])
+
+
+@pytest.mark.parametrize("dtype,hd,want", ROUTES)
+def test_route_by_dtype_and_head_dim(dtype, hd, want):
+    """Which kernel a call takes, from its dtype and head size alone."""
+    assert kernel.route(dtype, hd) == want
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 2, 16, seed=4))
     kernel.launches = 0
@@ -196,6 +212,42 @@ def test_3xtf32_route_matches_jax(b, s, H, G, hd, window):
     got = mha_tf32(*map(torch.from_numpy, (q, k, v)), causal=True, window=window).numpy()
     np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got, want_ref, rtol=2e-5, atol=2e-5)
+
+
+# SHAPES and two windowed hd 120 cases whose window edge falls mid-tile
+WGMMA_SHAPES = SHAPES + [(1, 333, 8, 2, 120, 45), (1, 130, 4, 2, 120, 64)]
+
+
+@pytest.mark.parametrize("b,s,H,G,hd,window", WGMMA_SHAPES)
+def test_wgmma_accumulation_matches_jax(b, s, H, G, hd, window):
+    """The wgmma kernel's accumulation (32-row kv tiles; S over hd in one
+    accumulator of truncating adds; each tile's P V in a fresh partial added
+    to the rescaled output) holds the JAX oracle to 2e-5."""
+    q, k, v = _qkv(b, s, H, G, hd, seed=s * H + hd + (window or 0))
+    want = np.asarray(jax_mha(*map(jnp.asarray, (q, k, v)), causal=True, window=window))
+    got = mha_tf32(*map(torch.from_numpy, (q, k, v)), causal=True, window=window,
+                   kv_tile=32).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_one_accumulator_over_the_window_drifts():
+    """Why each kv tile's P V goes to a fresh partial: kept in one wgmma
+    accumulator over the whole window, the output drifts with the window's
+    length (the tensor cores add with truncation), past the kernel tests'
+    2e-5 at h2o-danube-3-4b's 4096 and twice as far at 8192; the fresh
+    partials stay within 2e-6 at both. Outputs near 1 (v's mean 1), 64 rows
+    that see every column."""
+    errs = {}
+    for t in (4096, 8192):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 2, 1, 16, seed=19, t=t))
+        v = v + 1.0
+        want = mha_reference(q.double(), k.double(), v.double(), causal=False)
+        for fresh in (True, False):
+            got = mha_tf32(q, k, v, causal=False, kv_tile=32, fresh_partials=fresh)
+            errs[t, fresh] = (got.double() - want).abs().max().item()
+    assert errs[4096, True] < 2e-6 and errs[8192, True] < 2e-6, errs
+    assert errs[4096, False] > 2e-5, errs
+    assert errs[8192, False] > 1.5 * errs[4096, False], errs
 
 
 @pytest.mark.parametrize("b,s,H,G,hd,window", SHAPES)

@@ -78,6 +78,15 @@ CASES = [
     (1, 150, 4, 4, 224, None, torch.float32, 2e-5),
     (2, 99, 2, 2, 224, 40, torch.float32, 2e-5),
     (1, 100, 2, 2, 224, None, torch.bfloat16, 3e-2),
+    # the wgmma kernel at hd 120 (128 q rows a block, 32-row kv tiles): s a
+    # multiple of neither, windows whose left edge falls mid-tile, GQA at 1,
+    # 2, 4 and 8 q heads a kv head
+    (1, 77, 4, 4, 120, None, torch.float32, 2e-5),
+    (2, 161, 8, 4, 120, 33, torch.float32, 2e-5),
+    (1, 257, 16, 4, 120, 100, torch.float32, 2e-5),
+    (1, 200, 16, 2, 120, None, torch.float32, 2e-5),
+    (1, 129, 8, 1, 120, 64, torch.float32, 2e-5),
+    (2, 300, 8, 2, 120, 130, torch.float32, 2e-5),
 ]
 
 
@@ -97,13 +106,45 @@ def _qkv(b, s, H, G, hd, seed, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,H,G,hd,window,dtype,tol", CASES)
 def test_cuda_kernel_matches_plain(cuda, b, s, H, G, hd, window, dtype, tol):
+    """One launch a call, counted as wgmma where the route takes it."""
     q, k, v = _qkv(b, s, H, G, hd, seed=s + hd, dtype=dtype)
-    before = kernel.launches
+    before, before_wgmma = kernel.launches, kernel.launches_wgmma
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert kernel.launches_wgmma == before_wgmma + (kernel.route(dtype, hd) == "wgmma")
     ref = mha_reference(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,causal", [(100, 77, False), (77, 161, True), (200, 33, True),
+                                        (40, 300, False)])
+def test_wgmma_kernel_kv_length_apart(cuda, s, t, causal):
+    """The wgmma route with t != s (kv rows past t zero-filled by TMA and
+    masked) against the plain version at 2e-5."""
+    q, _, _ = _qkv(1, s, 8, 2, 120, seed=s + t, dtype=torch.float32)
+    _, k, v = _qkv(1, t, 8, 2, 120, seed=s + t + 1, dtype=torch.float32)
+    before = kernel.launches_wgmma
+    out = kernel.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.launches_wgmma == before + 1
+    ref = mha_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_at_the_h2o_prefill_cell(cuda):
+    """h2o-danube3-4b's attention as the h2o.prefill cell calls it: 2 x 4608,
+    32 / 8 heads of 120, window 4096, on the wgmma route, against the plain
+    version (up to 4096-long sums in another order: 1e-4)."""
+    q, k, v = _qkv(2, 4608, 32, 8, 120, seed=4608, dtype=torch.float32)
+    before, before_wgmma = kernel.launches, kernel.launches_wgmma
+    out = ops.flash_attention(q, k, v, causal=True, window=4096)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_wgmma) == (before + 1, before_wgmma + 1)
+    ref = ops.plain_attention(q, k, v, causal=True, window=4096)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -1143,12 +1184,16 @@ def test_dtensor_outside_local_map_raises(one_rank_mesh):
 @pytest.mark.gpu
 def test_launch_plans_from_the_built_sources(cuda):
     """The launches the built flash and column-major GEMM sources report,
-    which ``kernel_bench`` reads: flash at hd 128 fp32 is 8 warps of 32 q
-    rows with a q tile and two stages of 32-row k and v tiles; the GEMM's
-    128 x 64 block is 8 warps of 32 rows with a 4-stage ring and the
-    residual tile behind it."""
+    which ``kernel_bench`` reads: flash at hd 128 fp32 takes the wgmma
+    kernel, three warpgroups (two consumers of 64 q rows, the producer) with
+    q (4 chunks of 32 d) and two stages of 32-row k big and small, v^T big
+    and small and v as landed, behind 1 KB of alignment slack and 7
+    mbarriers; the GEMM's 128 x 64 block is 8 warps of 32 rows with a
+    4-stage ring and the residual tile behind it."""
+    stage = 2 * 4 * 32 * 128 + 2 * 128 * 32 * 4 + 32 * 128 * 4
     assert kernel.plan(128, torch.float32) == {
-        "threads": 256, "smem_bytes": 256 * 132 * 4 + 4 * 32 * 132 * 4, "bq": 256, "bk": 32}
+        "threads": 384, "smem_bytes": 1024 + 4 * 128 * 128 + 2 * stage + 7 * 8, "bq": 128,
+        "bk": 32}
     assert kernel.plan(256, torch.bfloat16)["threads"] == 128
     assert kernel.plan(224, torch.float32) == {
         "threads": 256, "smem_bytes": 128 * 228 * 4 + 4 * 16 * 228 * 4, "bq": 128, "bk": 16}
